@@ -1,0 +1,272 @@
+"""Continuous-time Gaussian diffusion (VDM), the reference's shipped family:
+the ancestral sampler, untiled and alternating-grid tiled.
+
+Counterpart of ``srgd_tpu/diffusion/continuous.py`` with ``sampler='ancestral'``.
+The JAX version compiles the step loop into one scan; here it is a plain
+Python loop of eager steps. Step math (per step i, log-SNR from a float64
+host table):
+
+    c        = -expm1(logSNR - logSNR_next)
+    alpha^2  = sigmoid(logSNR),  sigma^2 = sigmoid(-logSNR)
+    x0       = (x - sigma * eps_hat) / alpha, clamped to [-1, 1]
+    mean     = alpha_next * (x * (1 - c) / alpha + c * x0)
+    x_next   = mean + sqrt(sigma_next^2 * c) * noise   (no noise on the last step)
+
+Noise. Every random draw comes from one noise source with three methods,
+each returning a float32 standard-normal tensor of the given shape on the
+run's device. The samplers call them in this order:
+
+- ``tiled_sample``: ``init(canvas)`` once, for the starting canvas; then for
+  each executed step i in increasing order, ``step(i, canvas)`` (the step's
+  noise at canvas resolution, then tiled, so results do not depend on the
+  tile batch size) unless i is the last step, and after an odd step, when
+  the canvas has a margin, ``margin(i, canvas)`` for the margin re-noise.
+- ``sample``: ``init(shape)`` once unless ``init_noise`` is given, then
+  ``step(i, shape)`` for each step but the last unless ``step_noises`` is
+  given.
+
+``GeneratorNoise`` (the default) draws them in that order from one seeded
+``torch.Generator``. A test replays the JAX key schedule by handing in a
+source that returns, for ``step(i)`` and ``margin(i)``, the normals of the
+two halves of ``split(fold_in(rng, i))`` and, for ``init``, those of the
+init key (``srgd_tpu.diffusion.continuous.tiled_sample``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from srgd_tpu_torch.diffusion.base import (
+    GUIDANCE_CLASS, GUIDANCE_COND, guided_denoise, normalize_to_neg_one_to_one,
+    pad_tiles_to_multiple, prepare_tile_context, resolve_guidance_mode,
+    unnormalize_to_zero_to_one,
+)
+from srgd_tpu_torch.diffusion.schedules import make_log_snr_table
+from srgd_tpu_torch.tiling import (
+    extract_tiles, make_geometry, reflect_pad, scatter_tiles,
+)
+
+
+class GeneratorNoise:
+    """The default noise source: one ``torch.Generator`` seeded with ``seed``
+    on ``device``, drawn in the samplers' documented order."""
+
+    def __init__(self, seed: int, device):
+        self.device = torch.device(device)
+        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+
+    def _draw(self, shape):
+        return torch.randn(tuple(shape), generator=self.gen,
+                           device=self.device, dtype=torch.float32)
+
+    def init(self, shape):
+        return self._draw(shape)
+
+    def step(self, i: int, shape):
+        return self._draw(shape)
+
+    def margin(self, i: int, shape):
+        return self._draw(shape)
+
+
+def _f32(v):
+    return np.float32(v)
+
+
+def _sigmoid(v):
+    return _f32(1.0) / (_f32(1.0) + np.exp(-_f32(v)))
+
+
+class ContinuousDiffusion:
+    """Wraps a denoiser net with the continuous-time ancestral sampler."""
+
+    def __init__(self, net, *, image_size: int, channels: int = 3,
+                 noise_schedule: str = 'linear', num_sample_steps: int = 500,
+                 clip_sample_denoised: bool = True, sampler: str = 'ancestral',
+                 deep_cache_interval: int = 0):
+        if sampler != 'ancestral':
+            raise NotImplementedError(
+                f'continuous sampler {sampler!r} is not ported to '
+                'srgd_tpu_torch yet (ROADMAP.md Queue 1 item 8); only '
+                "'ancestral' is")
+        if deep_cache_interval > 1:
+            raise NotImplementedError(
+                'DeepCache sampling is not ported to srgd_tpu_torch yet '
+                '(ROADMAP.md Queue 1 item 9)')
+        if noise_schedule == 'learned':
+            raise NotImplementedError(
+                'the learned log-SNR schedule is not ported to srgd_tpu_torch '
+                'yet (ROADMAP.md Queue 1 item 11)')
+        self.net = net
+        self.image_size = image_size
+        self.channels = channels
+        self.noise_schedule = noise_schedule
+        self.num_sample_steps = num_sample_steps
+        self.clip_sample_denoised = clip_sample_denoised
+
+    def net_apply(self, x, time_b, cond, class_label, class_mask):
+        """(B, H, W, C) in, float32 (B, H, W, C) out; the net runs on NCHW
+        views of the same memory (channels_last)."""
+        def nchw(t):
+            return None if t is None else t.permute(0, 3, 1, 2)
+        out = self.net(nchw(x), time_b, cond=nchw(cond),
+                       class_label=class_label, class_mask=class_mask)
+        return out.permute(0, 2, 3, 1)
+
+    def log_snr_table(self, num_steps: int) -> np.ndarray:
+        """Per-step log-SNR at linspace(1, 0, N+1), float32."""
+        return make_log_snr_table(self.noise_schedule,
+                                  np.linspace(1.0, 0.0, num_steps + 1))
+
+    def q_sample_log_snr(self, x_start, log_snr, noise):
+        alpha = float(np.sqrt(_sigmoid(log_snr)))
+        sigma = float(np.sqrt(_sigmoid(-_f32(log_snr))))
+        return x_start * alpha + noise * sigma
+
+    def p_sample_tiles(self, x, cond, class_label, noise, log_snr,
+                       log_snr_next, mode: str, scale: float, is_last: bool):
+        """One reverse step on a batch of tiles (or whole images). Returns
+        (x_next, x_start). Scalars are float32, as in the JAX step."""
+        ls, lsn = _f32(log_snr), _f32(log_snr_next)
+        c = -np.expm1(ls - lsn)
+        alpha = np.sqrt(_sigmoid(ls))
+        sigma = np.sqrt(_sigmoid(-ls))
+        alpha_next = np.sqrt(_sigmoid(lsn))
+        sq_sigma_next = _sigmoid(-lsn)
+
+        time_b = torch.full((x.shape[0],), float(ls), dtype=torch.float32,
+                            device=x.device)
+        eps = guided_denoise(self.net_apply, x, time_b, cond, class_label,
+                             mode, scale)
+        x_start = (x - float(sigma) * eps) / float(alpha)
+        if self.clip_sample_denoised:
+            x_start = torch.clamp(x_start, -1.0, 1.0)
+            mean = float(alpha_next) * (x * float(_f32(1.0) - c)
+                                        / float(alpha) + float(c) * x_start)
+        else:
+            mean = float(alpha_next / alpha) * (x - float(c * sigma) * eps)
+        if is_last:
+            return mean, x_start
+        var = max(float(sq_sigma_next * c), 0.0)
+        return mean + float(np.sqrt(_f32(var))) * noise, x_start
+
+    @staticmethod
+    def _step_scale(i, mode, cond_scale, guidance_start_steps,
+                    class_cond_scale, class_guidance_start_steps) -> float:
+        """Guidance warmup: scale 1 (the conditional output) before the start
+        step."""
+        if mode == GUIDANCE_COND:
+            return 1.0 if i < guidance_start_steps else cond_scale
+        if mode == GUIDANCE_CLASS:
+            return 1.0 if i < class_guidance_start_steps else class_cond_scale
+        return 1.0
+
+    @torch.inference_mode()
+    def sample(self, condition_x, class_label=None, *, cond_scale: float = 1.0,
+               guidance_start_steps: int = 0, class_cond_scale: float = 1.0,
+               class_guidance_start_steps: int = 0,
+               generation_start_steps: int = 0,
+               num_sample_steps: int | None = None, init_noise=None,
+               step_noises=None, noise=None):
+        """Untiled sampling. condition_x: (B, H, W, C) in [0, 1]; returns
+        (B, H, W, C) in [0, 1]. ``init_noise`` (B, H, W, C) and
+        ``step_noises`` (N, B, H, W, C) override the noise source, as the JAX
+        ``sample`` allows."""
+        n_steps = num_sample_steps or self.num_sample_steps
+        cond = normalize_to_neg_one_to_one(condition_x)
+        table = self.log_snr_table(n_steps)
+        mode = resolve_guidance_mode(cond_scale, class_cond_scale)
+        if noise is None and (init_noise is None or step_noises is None):
+            noise = GeneratorNoise(0, cond.device)
+
+        if init_noise is None:
+            init_noise = noise.init(cond.shape)
+        img = (self.q_sample_log_snr(cond, table[generation_start_steps],
+                                     init_noise)
+               if generation_start_steps > 0 else init_noise)
+        for i in range(generation_start_steps, n_steps):
+            is_last = i == n_steps - 1
+            if is_last:
+                nz = None
+            elif step_noises is not None:
+                nz = step_noises[i]
+            else:
+                nz = noise.step(i, img.shape)
+            scale = self._step_scale(i, mode, cond_scale, guidance_start_steps,
+                                     class_cond_scale,
+                                     class_guidance_start_steps)
+            img, _ = self.p_sample_tiles(img, cond, class_label, nz, table[i],
+                                         table[i + 1], mode, scale, is_last)
+        return unnormalize_to_zero_to_one(torch.clamp(img, -1.0, 1.0))
+
+    @torch.inference_mode()
+    def tiled_sample(self, condition_x, class_label=None, *,
+                     batch_size: int = 4, tile_size: int = 256,
+                     tile_stride: int | None = None, cond_scale: float = 1.0,
+                     guidance_start_steps: int = 0,
+                     class_cond_scale: float = 1.0,
+                     class_guidance_start_steps: int = 0,
+                     generation_start_steps: int = 0,
+                     num_sample_steps: int | None = None,
+                     start_white_noise: bool = True, noise=None):
+        """Alternating-grid tiled sampling. condition_x: (B, H, W, C) in
+        [0, 1] at the target resolution (the pre-upscaled LR image); returns
+        (B, H, W, C) in [0, 1]. ``noise``: the noise source (default
+        ``GeneratorNoise(0, device)``)."""
+        n_steps = num_sample_steps or self.num_sample_steps
+        b, h, w, _ = condition_x.shape
+        geom = make_geometry(h, w, tile_size, tile_stride)
+        mode = resolve_guidance_mode(cond_scale, class_cond_scale)
+        table = self.log_snr_table(n_steps)
+        if noise is None:
+            noise = GeneratorNoise(0, condition_x.device)
+        gss = generation_start_steps
+
+        cond_padded = reflect_pad(normalize_to_neg_one_to_one(condition_x),
+                                  geom.pad)
+        canvas = tuple(cond_padded.shape)
+        init = noise.init(canvas)
+        if gss > 0:
+            img = self.q_sample_log_snr(cond_padded, table[gss], init)
+        elif start_white_noise:
+            img = init
+        else:
+            img = self.q_sample_log_snr(cond_padded, table[0], init)
+
+        cond_tiles, label_tiles, n_chunks, chunks, interior_mask = \
+            prepare_tile_context(cond_padded, geom, b, batch_size, class_label)
+
+        for i in range(gss, n_steps):
+            p = i % 2
+            is_last = i == n_steps - 1
+            scale = self._step_scale(i, mode, cond_scale, guidance_start_steps,
+                                     class_cond_scale,
+                                     class_guidance_start_steps)
+            tiles, n_orig = pad_tiles_to_multiple(extract_tiles(img, geom, p),
+                                                  chunks[p])
+            nz = None
+            if not is_last:
+                nz, _ = pad_tiles_to_multiple(
+                    extract_tiles(noise.step(i, canvas), geom, p), chunks[p])
+            outs = []
+            for k in range(n_chunks[p]):
+                sl = slice(k * chunks[p], (k + 1) * chunks[p])
+                nx, _ = self.p_sample_tiles(
+                    tiles[sl], cond_tiles[p][sl],
+                    None if label_tiles[p] is None else label_tiles[p][sl],
+                    None if nz is None else nz[sl], table[i], table[i + 1],
+                    mode, scale, is_last)
+                outs.append(nx)
+            img = scatter_tiles(img, torch.cat(outs)[:n_orig], geom, p)
+
+            if p == 1 and interior_mask is not None:
+                # margin := q_sample(zeros, t_next) = sigma_next * noise, after
+                # every odd step including the last (the crop never reaches it)
+                sigma_next = float(np.sqrt(_sigmoid(-_f32(table[i + 1]))))
+                fresh = noise.margin(i, canvas) * sigma_next
+                img = img * interior_mask + fresh * (1.0 - interior_mask)
+
+        left, top, right, bottom = geom.crop
+        out = img[:, top:bottom, left:right, :]
+        return unnormalize_to_zero_to_one(torch.clamp(out, -1.0, 1.0))

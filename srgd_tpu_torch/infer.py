@@ -1,0 +1,258 @@
+"""Inference CLI of the PyTorch port: the flag surface of ``srgd_tpu.infer``.
+
+    python -m srgd_tpu_torch.infer -c conf.yaml -m ckpt.pth \\
+        --input_dir IN --output_dir OUT [--test_label 0 --class_cond_scale 1.0
+        --seed 71 --num_sample_steps 250 --precision bf16 --device cuda ...]
+
+Kept from the reference CLI (docs/PARITY.md #1, divergences 10-11): per-image
+re-seeding, the x4 bicubic PIL pre-upscale (any --interpolation value means
+bicubic), skip-existing resume by output filename, the '.png' -> '_out.png'
+rename, the x4 output-size assert, unreadable inputs skipped, and the
+accepted-but-unused --backend flag.
+
+Port additions: --device (default cuda; asking for cuda without a card
+raises). Flags whose feature is not ported raise, naming the ROADMAP item,
+instead of being ignored. ``yaml`` and ``PIL`` are imported only where the
+CLI needs them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import logging
+import os
+import time
+
+import numpy as np
+import torch
+
+from srgd_tpu_torch.diffusion.continuous import GeneratorNoise
+
+logger = logging.getLogger('srgd_tpu_torch')
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument('-c', '--conf', required=True, help='Path to config file')
+    p.add_argument('-m', '--ckpt_path', type=str, required=True)
+    p.add_argument('--input_dir', type=str, required=True)
+    p.add_argument('--output_dir', type=str, required=True)
+    p.add_argument('--batch_size', type=int, default=8)
+    p.add_argument('--num_sample_steps', type=int, default=250)
+    p.add_argument('--interpolation', type=str, default='bicubic')
+    p.add_argument('--cond_scale', type=float, default=1.0)
+    p.add_argument('--class_cond_scale', type=float, default=1.0)
+    p.add_argument('--guidance_start_steps', type=int, default=0)
+    p.add_argument('--class_guidance_start_steps', type=int, default=0)
+    p.add_argument('--generation_start_steps', type=int, default=0)
+    p.add_argument('--start_index', type=int, default=0)
+    p.add_argument('--end_index', type=int, default=None)
+    p.add_argument('--test_label', type=int, default=None)
+    p.add_argument('--no_amp', dest='amp', action='store_false')
+    p.add_argument('--no_dpmpp_solver', dest='use_dpmpp_solver',
+                   action='store_false')
+    p.add_argument('--continuous_sampler', type=str, default=None,
+                   choices=['ancestral', 'ddim', 'dpmpp'])
+    p.add_argument('--ddim_eta', type=float, default=None)
+    p.add_argument('--seed', type=int, default=71)
+    p.add_argument('--backend', type=str, default='ddp')  # accepted, unused
+    p.add_argument('--precision', type=str, default='fp32',
+                   choices=['fp32', 'bf16', 'int8'])
+    p.add_argument('--quantize_min_channels', type=int, default=None)
+    p.add_argument('--quantize_smooth_alpha', type=float, default=None)
+    p.add_argument('--quant_calibrate_per_time', action='store_true')
+    p.add_argument('--quant_cal_mode', type=str, default=None)
+    p.add_argument('--quant_calibrate', action='store_true')
+    p.add_argument('--quant_calibrate_cache', type=str, default=None)
+    p.add_argument('--deep_cache', type=int, default=0)
+    p.add_argument('--deep_cache_depth', type=int, default=None)
+    p.add_argument('--deep_cache_schedule', type=str, default=None)
+    p.add_argument('--matmul_precision', type=str, default='default',
+                   choices=['default', 'high', 'highest'])
+    p.add_argument('--tile_size', type=int, default=256)
+    p.add_argument('--exec_mode', type=str, default='host',
+                   choices=['host', 'scan'],
+                   help='accepted; the port always runs a Python step loop')
+    p.add_argument('--use_pallas', action='store_true')
+    p.add_argument('--mesh', type=str, default='')
+    p.add_argument('--device', type=str, default='cuda',
+                   help="torch device to run on: 'cuda' (default) or 'cpu'")
+    return p.parse_args(argv)
+
+
+def check_ported(args) -> None:
+    """Raise for every flag whose feature the port does not have yet."""
+    unported = [
+        (args.precision == 'int8', '--precision int8', 14),
+        (args.quantize_min_channels is not None or
+         args.quantize_smooth_alpha is not None or args.quant_calibrate or
+         args.quant_calibrate_per_time or args.quant_cal_mode is not None or
+         args.quant_calibrate_cache is not None, '--quant*', 14),
+        (args.deep_cache > 1 or args.deep_cache_depth is not None or
+         args.deep_cache_schedule is not None, '--deep_cache*', 9),
+        (bool(args.mesh), '--mesh', 15),
+        (args.continuous_sampler in ('ddim', 'dpmpp') or
+         args.ddim_eta is not None, '--continuous_sampler ddim|dpmpp', 8),
+        (args.use_pallas, '--use_pallas', 'Queue 2 items 3-5'),
+    ]
+    for bad, flag, item in unported:
+        if bad:
+            where = item if isinstance(item, str) else f'Queue 1 item {item}'
+            raise NotImplementedError(
+                f'{flag} is not ported to srgd_tpu_torch yet (ROADMAP.md '
+                f'{where})')
+
+
+def resolve_device(name: str) -> torch.device:
+    device = torch.device(name)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError('--device cuda but no CUDA device is available; '
+                           'pass --device cpu to run on the CPU')
+    return device
+
+
+def try_open_image(image_path):
+    from PIL import Image
+    try:
+        return Image.open(image_path).convert('RGB')
+    except (IOError, SyntaxError):
+        return None
+
+
+def upscale_bicubic(image, scale: int = 4, interpolation: str = 'bicubic'):
+    """PIL x{scale} pre-upscale; every interpolation value maps to bicubic."""
+    from PIL import Image
+    width, height = image.size
+    return image.resize((width * scale, height * scale), resample=Image.BICUBIC)
+
+
+class Sampler:
+    """The tiled sampler with the CLI's options, re-seeded for every image.
+
+    ``noise_for_seed(seed, device)`` makes each image's noise source
+    (default: ``GeneratorNoise``)."""
+
+    def __init__(self, wrapper, opts: dict, device, noise_for_seed=GeneratorNoise):
+        self.wrapper, self.opts, self.device = wrapper, opts, device
+        self.noise_for_seed = noise_for_seed
+
+    def sample(self, cond_np: np.ndarray, label, seed: int) -> np.ndarray:
+        """cond_np: (B, H, W, C) in [0, 1]; label: None or an int applied to
+        every canvas. Returns (B, H, W, C) in [0, 1] as numpy."""
+        o = self.opts
+        cond = torch.from_numpy(np.ascontiguousarray(cond_np)).to(self.device)
+        lab = None
+        if label is not None:
+            lab = torch.full((cond.shape[0],), int(label), dtype=torch.long,
+                             device=self.device)
+        out = self.wrapper.tiled_sample(
+            cond, lab, batch_size=o['batch_size'], tile_size=o['tile_size'],
+            tile_stride=o['tile_stride'], cond_scale=o['cond_scale'],
+            guidance_start_steps=o['guidance_start_steps'],
+            class_cond_scale=o['class_cond_scale'],
+            class_guidance_start_steps=o['class_guidance_start_steps'],
+            generation_start_steps=o['generation_start_steps'],
+            num_sample_steps=o['num_sample_steps'],
+            noise=self.noise_for_seed(seed, self.device))
+        return out.cpu().numpy()
+
+
+def sr_target_image(image, sampler: Sampler, scale: int = 4, test_label=None,
+                    interpolation: str = 'bicubic', seed: int = 71):
+    """Super-resolve one PIL image."""
+    from PIL import Image
+    width, height = image.size
+    upscaled = upscale_bicubic(image, scale, interpolation)
+    cond = np.asarray(upscaled, dtype=np.float32)[None] / 255.0
+    out = sampler.sample(cond, test_label, seed)[0]
+    sr_img = Image.fromarray(np.clip(np.round(out * 255.0), 0, 255)
+                             .astype(np.uint8))
+    new_width, new_height = sr_img.size
+    assert width * 4 == new_width
+    assert height * 4 == new_height
+    return sr_img
+
+
+def pending_outputs(input_dir, output_dir, start_index=0, end_index=None):
+    """(input_path, output_path) of the sorted inputs whose output does not
+    exist yet; output names rewrite '.png' to '_out.png'."""
+    for filename in sorted(glob.glob(f'{input_dir}/*'))[start_index:end_index]:
+        save_filename = os.path.basename(filename).replace('.png', '_out.png')
+        save_path = os.path.join(output_dir, save_filename)
+        if os.path.exists(save_path):
+            print('skip')
+            continue
+        yield filename, save_path
+
+
+def batch_sr_target_images(input_dir, output_dir, sampler: Sampler, scale=4,
+                           test_label=None, start_index=0, end_index=None,
+                           interpolation='bicubic', seed=71):
+    """Super-resolve every pending input of ``input_dir`` into ``output_dir``."""
+    print(f'save images at: {output_dir}')
+    os.makedirs(output_dir, exist_ok=True)
+    for filename, save_path in pending_outputs(input_dir, output_dir,
+                                               start_index, end_index):
+        image = try_open_image(filename)
+        if image is None:
+            print('Invalid image or unable to open image:', filename)
+            continue
+        t0 = time.time()
+        sr_img = sr_target_image(image, sampler, scale=scale,
+                                 test_label=test_label,
+                                 interpolation=interpolation, seed=seed)
+        sr_img.save(save_path)
+        logger.info('%s -> %s (%.2f MPix in %.2fs)', filename, save_path,
+                    sr_img.size[0] * sr_img.size[1] / 1e6, time.time() - t0)
+
+
+def build_sampler(args, noise_for_seed=GeneratorNoise) -> Sampler:
+    """Config + flags -> the model on ``args.device`` -> a ``Sampler``."""
+    from srgd_tpu.config import load_config
+    from srgd_tpu_torch.factory import get_model
+    check_ported(args)
+    device = resolve_device(args.device)
+    if args.matmul_precision != 'default':
+        # float32 products: 'highest' keeps full float32, 'high' allows TF32
+        torch.set_float32_matmul_precision(args.matmul_precision)
+        torch.backends.cudnn.allow_tf32 = args.matmul_precision == 'high'
+    conf = load_config(args.conf)
+    conf.num_sample_steps = args.num_sample_steps
+    conf.ckpt_path = args.ckpt_path
+    conf.compute_dtype = {'fp32': 'float32', 'bf16': 'bfloat16'}[args.precision]
+    conf.quantize = 'none'   # --precision fp32/bf16 overrides a YAML's quantize
+    conf.tile_size = args.tile_size
+    if args.continuous_sampler:
+        conf.continuous_sampler = args.continuous_sampler
+    wrapper, _ = get_model(conf, device=device)
+    opts = dict(batch_size=args.batch_size, tile_size=args.tile_size,
+                tile_stride=conf.tile_stride or None,
+                cond_scale=args.cond_scale,
+                guidance_start_steps=args.guidance_start_steps,
+                class_cond_scale=args.class_cond_scale,
+                class_guidance_start_steps=args.class_guidance_start_steps,
+                generation_start_steps=args.generation_start_steps,
+                num_sample_steps=args.num_sample_steps)
+    return Sampler(wrapper, opts, device, noise_for_seed)
+
+
+def run(args, sampler: Sampler) -> None:
+    batch_sr_target_images(args.input_dir, args.output_dir, sampler, scale=4,
+                           test_label=args.test_label,
+                           start_index=args.start_index,
+                           end_index=args.end_index,
+                           interpolation=args.interpolation, seed=args.seed)
+
+
+def main(argv=None):
+    logging.basicConfig(level=logging.INFO,
+                        format='%(asctime)s %(name)s %(levelname)s %(message)s')
+    args = parse_args(argv)
+    sampler = build_sampler(args)
+    print(args)
+    run(args, sampler)
+
+
+if __name__ == '__main__':
+    main()

@@ -1,0 +1,203 @@
+"""The SR denoiser U-Net (PyTorch, NCHW in ``channels_last`` memory).
+
+Counterpart of ``srgd_tpu/nn/unet.py`` (``SRUnet``, ``build_unet_from_config``).
+Module names are the reference's torch Sequential indices (``downs.{i}.{j}``,
+``ups.{i}.{j}``, ``mid_block1``, ...), so a reference state dict loads with
+``load_state_dict(strict=True)``.
+
+The classifier-free-guidance nulls are the JAX package's: the LR-condition
+null is an all-zeros condition image (``cond=None``) and the class null is a
+per-sample ``class_mask`` that zeroes the class-embedding addition, so both
+nulls fit in one doubled-batch forward.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from srgd_tpu_torch.nn.layers import (
+    Attention, ClassMLP, Conv2d, Downsample, LearnedSinusoidalPosEmb,
+    LinearAttention, NearestUpsample, PixelShuffleUpsample, ResnetBlock,
+    RMSNorm, TimeMLP,
+)
+
+_DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
+
+
+class SRUnet(nn.Module):
+    """4-stage conv + attention U-Net denoiser with LR-image channel-concat
+    conditioning and optional degradation-class conditioning.
+
+    Input channels = 2 * channels (noisy image concat condition image); H and
+    W must be divisible by 2 ** (len(dim_mults) - 1). ``dtype`` is the
+    compute dtype; parameters are float32. Build on ``device='meta'`` to
+    count parameters without allocating them."""
+
+    def __init__(self, dim: int, dim_mults: Sequence[int] = (1, 2, 4, 8),
+                 channels: int = 3, resnet_block_groups: int = 8,
+                 learned_variance: bool = False,
+                 learned_sinusoidal_cond: bool = False,
+                 learned_sinusoidal_dim: int = 16, attn_dim_head: int = 32,
+                 attn_heads: int = 4,
+                 full_attn: Sequence[bool] = (False, False, False, True),
+                 pixel_shuffle_upsample: bool = True,
+                 num_classes: int | None = None, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.dim, self.dim_mults, self.channels = dim, tuple(dim_mults), channels
+        self.num_classes, self.dtype = num_classes, dtype
+        self.downsample_factor = 2 ** (len(dim_mults) - 1)
+        dims = [dim] + [dim * m for m in dim_mults]
+        in_out = list(zip(dims[:-1], dims[1:]))
+        n_stages = len(in_out)
+        time_dim = dim * 4
+        kw = dict(dtype=dtype, device=device)
+
+        def block(d_in, d_out):
+            return ResnetBlock(d_in, d_out, time_emb_dim=time_dim,
+                               groups=resnet_block_groups, **kw)
+
+        def attn(d, is_full):
+            cls = Attention if is_full else LinearAttention
+            return cls(d, heads=attn_heads, dim_head=attn_dim_head, **kw)
+
+        self.init_conv = Conv2d(channels * 2, dim, 7, padding=3, **kw)
+        self.time_mlp = TimeMLP(dim, time_dim, learned_sinusoidal_cond,
+                                learned_sinusoidal_dim, device=device)
+        self.class_mlp = (ClassMLP(num_classes, dim, time_dim, device=device)
+                          if num_classes is not None else None)
+
+        self.downs = nn.ModuleList()
+        for i, (d_in, d_out) in enumerate(in_out):
+            last = i == n_stages - 1
+            self.downs.append(nn.ModuleList([
+                block(d_in, d_in), block(d_in, d_in), attn(d_in, full_attn[i]),
+                Downsample(d_in, d_out, **kw) if not last
+                else Conv2d(d_in, d_out, 3, padding=1, **kw)]))
+
+        mid = dims[-1]
+        self.mid_block1 = block(mid, mid)
+        self.mid_attn = attn(mid, True)
+        self.mid_block2 = block(mid, mid)
+
+        self.ups = nn.ModuleList()
+        rev = list(zip(reversed(in_out), reversed(list(full_attn))))
+        for i, ((d_in, d_out), is_full) in enumerate(rev):
+            last = i == n_stages - 1
+            up = PixelShuffleUpsample if pixel_shuffle_upsample else NearestUpsample
+            self.ups.append(nn.ModuleList([
+                block(d_out + d_in, d_out), block(d_out + d_in, d_out),
+                attn(d_out, is_full),
+                up(d_out, d_in, **kw) if not last
+                else Conv2d(d_out, d_in, 3, padding=1, **kw)]))
+
+        self.final_res_block = block(dim * 2, dim)
+        out_dim = channels * (2 if learned_variance else 1)
+        self.final_conv = Conv2d(dim, out_dim, 1, **kw)
+
+    @torch.no_grad()
+    def init_weights(self, gen: torch.Generator):
+        """Random weights from ``gen``, a CPU generator: drawn on the CPU in
+        module order and copied to the net's device. Convolutions and linears
+        U(+-1/sqrt(fan_in)) (torch's default bound), norm gains one and norm
+        biases zero, embeddings N(0, 1), and the pixel-shuffle upsamplers'
+        repeated-kaiming init."""
+        def draw(p, fn):
+            p.copy_(fn(p.shape))
+
+        for m in self.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                bound = 1 / math.sqrt(m.weight[0].numel())
+                for p in (m.weight, m.bias):
+                    if p is not None:
+                        draw(p, lambda s: (torch.rand(s, generator=gen) * 2 - 1)
+                             * bound)
+            elif isinstance(m, (nn.GroupNorm, RMSNorm)):
+                for name, p in m.named_parameters():
+                    draw(p, torch.zeros if name == 'bias' else torch.ones)
+            elif isinstance(m, (nn.Embedding, LearnedSinusoidalPosEmb)):
+                for p in m.parameters():
+                    draw(p, lambda s: torch.randn(s, generator=gen))
+        # after the loop, which visits a module before its children and so
+        # would overwrite the upsamplers' convs with the generic draw
+        for m in self.modules():
+            if isinstance(m, PixelShuffleUpsample):
+                m.init_weights(gen)
+
+    def forward(self, x, time, cond=None, class_label=None, class_mask=None):
+        """x: (B, C, H, W) noisy image in [-1, 1]; time: (B,) float; cond:
+        (B, C, H, W) LR condition or None (zeros: the CFG null); class_label:
+        (B,) int or None; class_mask: (B,) float gating the class-embedding
+        addition per sample (None: all ones). Returns float32 (B, C, H, W)."""
+        f = self.downsample_factor
+        if x.shape[2] % f or x.shape[3] % f:
+            raise ValueError(f'input spatial dims {tuple(x.shape[2:])} must be '
+                             f'divisible by {f}')
+        if cond is None:
+            cond = torch.zeros_like(x)
+        x = torch.cat([x, cond.to(x.dtype)], dim=1).to(self.dtype)
+        x = x.contiguous(memory_format=torch.channels_last)
+        x = self.init_conv(x)
+        r = x
+
+        t = self.time_mlp(time)
+        if self.class_mlp is not None and class_label is not None:
+            c = self.class_mlp(class_label)
+            if class_mask is not None:
+                c = c * class_mask[:, None].to(c.dtype)
+            t = t + c
+
+        hs = []
+        for block1, block2, attn, down in self.downs:
+            x = block1(x, t)
+            hs.append(x)
+            x = block2(x, t)
+            x = attn(x) + x
+            hs.append(x)
+            x = down(x)
+
+        x = self.mid_block1(x, t)
+        x = self.mid_attn(x) + x
+        x = self.mid_block2(x, t)
+
+        for block1, block2, attn, up in self.ups:
+            x = block1(torch.cat([x, hs.pop()], dim=1), t)
+            x = block2(torch.cat([x, hs.pop()], dim=1), t)
+            x = attn(x) + x
+            x = up(x)
+
+        x = self.final_res_block(torch.cat([x, r], dim=1), t)
+        return self.final_conv(x).float()
+
+
+def build_unet_from_config(conf, dtype=None, device=None) -> SRUnet:
+    """``Config`` -> ``SRUnet``, as the JAX factory builds it. Options the port
+    does not carry raise (ROADMAP Queue 1 items 9, 14 and 12; Queue 2 items
+    3-5)."""
+    unsupported = {
+        'quantize': conf.quantize != 'none',
+        'use_pallas_kernels': conf.use_pallas_kernels,
+        'flash_attn': conf.flash_attn,
+        'remat_unet': conf.remat_unet,
+        'deep_cache_interval': conf.deep_cache_interval > 1,
+    }
+    bad = [k for k, on in unsupported.items() if on]
+    if bad:
+        raise NotImplementedError(
+            f'not ported to srgd_tpu_torch yet (ROADMAP.md): {", ".join(bad)}')
+    dim_mults = tuple(int(e) for e in conf.ddpm_unet_dim_mults.split(','))
+    full_attn = tuple(e.strip() == 'True' for e in conf.full_attn.split(','))
+    if dtype is None:
+        dtype = _DTYPES[conf.compute_dtype]
+    return SRUnet(
+        dim=conf.unet_dim, dim_mults=dim_mults, full_attn=full_attn,
+        learned_variance=conf.learned_variance,
+        learned_sinusoidal_cond=conf.learned_sinusoidal_cond,
+        learned_sinusoidal_dim=conf.learned_sinusoidal_dim,
+        pixel_shuffle_upsample=conf.pixel_shuffle_upsample,
+        num_classes=conf.num_classes if 'conditional' in conf.model else None,
+        dtype=dtype, device=device)
