@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch port's main paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -8,24 +8,51 @@ Phases, each printed as one JSON line:
 1. device: the card's name and power limit (nvidia-smi), CUDA version; TF32
    is switched off for matmuls and convolutions.
 2. build: the CUDA kernels are compiled from ``srgd_tpu_torch/csrc``.
-3. kernels: each kernel against its plain PyTorch version at every flagship
-   shape (b = 8) in bfloat16 and float32, with max-abs error and CUDA-event
-   times of both.
+3. kernels: each of the six kernels against its plain PyTorch version at every
+   flagship shape (b = 8; ``groupnorm_silu`` with and without FiLM; every
+   kernel's largest shape also at b = 16, the batch class CFG gives) in
+   bfloat16 and float32, with max-abs error, the
+   CUDA-event times of both (the 50 MB L2 is flushed before every timed call)
+   and the bound: the least time the card could take, the larger of the
+   function's bytes (inputs read once, outputs written once) over the memory
+   rate and its operations over the peak rate for their type. For
+   ``attention`` also the time of one ``F.scaled_dot_product_attention`` call
+   on the same inputs, a yardstick the port never calls.
 4. slice: the flagship net (dim 128, mults 1,2,4,8, full width, random
    weights from a seed, bfloat16) samples a 512x512 condition image through
    the tiled ancestral sampler with class CFG; the output must be finite, in
    [0, 1], of the right shape, and every U-Net forward must have launched
-   each attention kernel once per attention block.
-5. bench: one even and one odd step of a 512-px LR input (2304 canvas).
+   ``linattn_block`` and ``attn_block`` once per attention block and no other
+   kernel.
+5. slice_pallas: the same net built with ``use_pallas``,
+   ``use_pallas_attention`` and ``fused_linattn=False`` samples the same
+   condition with DDIM at eta = 1; every forward must have launched
+   ``groupnorm_silu`` once per Block, ``linear_attention_qkv`` once per
+   linear and ``attention`` once per full attention block, and neither
+   whole-block kernel. One forward of this net and of the default net on the
+   same tile batch must agree within a relative bound, and so must each of
+   its attention blocks on the input its twin saw; the default net also
+   samples the same condition and noise and the two outputs' max-abs
+   difference is reported; a 2-step ``dpmpp`` run must be finite and in
+   [0, 1]; and the separate-q-k-v entry ``linear_attention``, which no module
+   calls, is driven once on a stage-0 projection and must equal the packed
+   entry bit for bit (``drive_launches`` in the summary, not ``launches``).
+6. bench: one U-Net forward (b = 8 tiles of 256 px) and one even and one odd
+   step of a 512-px LR input (2304 canvas), for the default net and for the
+   ``use_pallas`` net.
+7. profile, only with ``--profile``: ``torch.profiler`` over three forwards of
+   each net, device time per kernel name.
 
-Then the kernel summary and, last, the device line. Exits non-zero, before
-building anything, when no CUDA device is visible, and on any failure. There
-is no CPU mode; the phase functions take a device and sizes so the tests can
-rehearse them at a tiny size on the CPU.
+Every launch count is set to 0 just before a path is driven and read just
+after. Then the kernel summary and, last, the device line. Exits non-zero,
+before building anything, when no CUDA device is visible, and on any failure.
+There is no CPU mode; the phase functions take a device and sizes so the
+tests can rehearse them at a tiny size on the CPU.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -36,15 +63,62 @@ import time
 LINATTN_SHAPES = ((65536, 128), (16384, 128), (4096, 256), (4096, 512),
                   (16384, 256))
 ATTN_SHAPES = ((1024, 512), (1024, 1024))
+# (rows, c) of the flagship's 38 Blocks, n of its linear-attention cores
+# (C = 128) and n of its full-attention cores (4 heads of 32)
+GN_SHAPES = ((65536, 128), (16384, 128), (16384, 256), (4096, 256),
+             (4096, 512), (1024, 512), (1024, 1024))
+LINEAR_SHAPES = (65536, 16384, 4096)
+FLASH_SHAPES = (1024,)
 BF16_RTOL = 2e-2    # max|kernel - plain| <= 2e-2 * max|plain|
 F32_ATOL = 1e-4     # max|kernel - plain| <= 1e-4 * max(1, max|plain|)
+# max|y - y_default| / max|y_default| of one forward of the two bf16 nets, and
+# of each attention block on its twin's input; the two round at different
+# points
+PALLAS_VS_DEFAULT_MAX = 0.05
 
-LINATTN_REPLACES = 'srgd_tpu/kernels/linattn_block.py:191'
-ATTN_REPLACES = 'srgd_tpu/kernels/attn_block.py:107'
+# NVIDIA H100 SXM data sheet: device memory rate and dense peak rates
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
+
+# name -> (TPU kernel it replaces, CUDA source, wrapper module, counter)
+KERNELS = {
+    'linattn_block': ('srgd_tpu/kernels/linattn_block.py:191',
+                      'linattn_block.cu', 'linattn_block', 'launches'),
+    'attn_block': ('srgd_tpu/kernels/attn_block.py:107',
+                   'attn_block.cu', 'attn_block', 'launches'),
+    'groupnorm_silu': ('srgd_tpu/kernels/groupnorm_silu.py:60',
+                       'groupnorm_silu.cu', 'groupnorm_silu', 'launches'),
+    'attention': ('srgd_tpu/kernels/attention.py:53',
+                  'attention.cu', 'attention', 'launches'),
+    'linear_attention': ('srgd_tpu/kernels/linear_attention.py:90',
+                         'linear_attention.cu', 'linear_attention',
+                         'launches'),
+    'linear_attention_qkv': ('srgd_tpu/kernels/linear_attention.py:197',
+                             'linear_attention.cu', 'linear_attention',
+                             'launches_qkv'),
+}
+OFF_PATH = ('linear_attention',)   # a public entry that no module calls
+PALLAS_FLAGS = dict(use_pallas=True, use_pallas_attention=True,
+                    fused_linattn=False)
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def _counter(name):
+    import importlib
+    _, _, module, attr = KERNELS[name]
+    return importlib.import_module(f'srgd_tpu_torch.kernels.{module}'), attr
+
+
+def reset_counts() -> None:
+    for name in KERNELS:
+        setattr(*_counter(name), 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(*_counter(name)) for name in KERNELS}
 
 
 def phase_device(torch):
@@ -64,27 +138,33 @@ def phase_build():
     path = _build.build()
     _build.load()
     return {'phase': 'build', 'seconds': time.perf_counter() - t0,
+            'sources': [p.name for p in _build.sources()],
             'library': str(path.name)}
 
 
-def time_ms(torch, fn, device, iters: int) -> float:
-    """Mean ms per call: CUDA events around ``iters`` calls after a warm-up
-    (host clock on the CPU, where the tests rehearse this at tiny sizes)."""
+def time_ms(torch, fn, device, iters: int, flush=None) -> float:
+    """Mean ms per call after a warm-up. On the card: CUDA events around each
+    call, with ``flush`` (a buffer larger than the L2) rewritten before it so
+    the call finds the cache cold, as it would behind another layer. On the
+    CPU, where the tests rehearse this at tiny sizes, the host clock."""
     fn()
     if device.type != 'cuda':
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
         return (time.perf_counter() - t0) * 1e3 / iters
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
+    events = []
     for _ in range(iters):
+        if flush is not None:
+            flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         fn()
-    end.record()
+        end.record()
+        events.append((start, end))
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
 def _within(err: float, ref_max: float, dtype, torch) -> tuple[bool, float]:
@@ -93,19 +173,28 @@ def _within(err: float, ref_max: float, dtype, torch) -> tuple[bool, float]:
     return err <= tol, tol
 
 
-def phase_kernels(torch, device, *, b=8, lin_shapes=LINATTN_SHAPES,
-                  attn_shapes=ATTN_SHAPES, iters=5, seed=0):
-    """Each kernel against its plain version at the given shapes, bf16 and f32.
-    Inputs come from a seeded generator, weights scaled by 1/sqrt(fan-in)."""
+def kernel_cases(torch, device, b, gen, *, lin_shapes, attn_shapes, gn_shapes,
+                 linear_shapes, flash_shapes):
+    """Yield (kernel, shape, make) for every kernel and shape; make(dtype)
+    returns the kernel call, its plain version, the library call or None, and
+    the bytes the function must move and the operations it must do, both
+    from the shapes (element size es; hidden = 4 heads x 32 = 128)."""
+    import torch.nn.functional as F
+
+    from srgd_tpu_torch.kernels import attention as at
     from srgd_tpu_torch.kernels import attn_block as ab
+    from srgd_tpu_torch.kernels import groupnorm_silu as gs
     from srgd_tpu_torch.kernels import linattn_block as lb
-    gen = torch.Generator(device=device).manual_seed(seed)
+    from srgd_tpu_torch.kernels import linear_attention as la
 
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=device) * scale
 
-    cases = []
-    for kind, shapes in (('linattn_block', lin_shapes), ('attn_block', attn_shapes)):
+    def es(dtype):
+        return 2 if dtype == torch.bfloat16 else 4
+
+    for kind, shapes in (('linattn_block', lin_shapes),
+                         ('attn_block', attn_shapes)):
         for n, c in shapes:
             x32 = randn(b, n, c)
             g1, g2 = 1 + randn(c, scale=0.1), 1 + randn(c, scale=0.1)
@@ -115,70 +204,195 @@ def phase_kernels(torch, device, *, b=8, lin_shapes=LINATTN_SHAPES,
                 ws = [randn(c, 128, scale=c ** -0.5) for _ in range(3)]
             else:
                 ws = [randn(c, 384, scale=c ** -0.5)]
-            for dtype in (torch.bfloat16, torch.float32):
+
+            def make(dtype, kind=kind, n=n, c=c, x32=x32, g1=g1, g2=g2,
+                     bout=bout, wout=wout, ws=ws):
                 x = x32.to(dtype)
                 wd = [w.to(dtype) for w in ws] + [wout.to(dtype)]
+                # x in, out, the four weights; qkv and out projections plus
+                # the attention products
+                nbytes = (2 * b * n * c + 4 * c * 128) * es(dtype) + 12 * c
+                proj = 2 * b * n * c * 128 * 4
                 if kind == 'linattn_block':
                     args = (x, g1, *wd, bout, g2)
-                    kern = lambda: lb.linattn_block(*args, dim_head=32)
-                    plain = lambda: lb.linattn_block_plain(*args, dim_head=32)
-                else:
-                    args = (x, g1, *wd, bout)
-                    kern = lambda: ab.attn_block(*args, heads=4, dim_head=32)
-                    plain = lambda: ab.attn_block_plain(*args, heads=4,
-                                                        dim_head=32)
-                got, want = kern().float(), plain().float()
-                if device.type == 'cuda':
-                    torch.cuda.synchronize()
-                err = (got - want).abs().max().item()
-                ref_max = want.abs().max().item()
-                ok, tol = _within(err, ref_max, dtype, torch)
-                ok = ok and bool(torch.isfinite(got).all())
-                cases.append({
-                    'kernel': kind, 'n': n, 'c': c, 'b': b,
-                    'dtype': str(dtype).replace('torch.', ''),
-                    'max_abs_err': err, 'tol': tol, 'ok': ok,
-                    'ms': time_ms(torch, kern, device, iters),
-                    'plain_ms': time_ms(torch, plain, device, iters)})
-                del got, want
+                    return dict(
+                        kern=lambda: lb.linattn_block(*args, dim_head=32),
+                        plain=lambda: lb.linattn_block_plain(*args, dim_head=32),
+                        bytes=nbytes, flops=proj + 2 * 2 * b * n * 128 * 32)
+                args = (x, g1, *wd, bout)
+                return dict(
+                    kern=lambda: ab.attn_block(*args, heads=4, dim_head=32),
+                    plain=lambda: ab.attn_block_plain(*args, heads=4,
+                                                      dim_head=32),
+                    bytes=nbytes, flops=proj + 4 * b * 4 * n * n * 32)
+
+            yield kind, {'n': n, 'c': c}, make
+
+    for rows, c in gn_shapes:
+        x32 = randn(b, rows, c, scale=1.5) + 0.3
+        gamma, beta = 1 + randn(c, scale=0.1), randn(c, scale=0.1)
+        with_film = randn(b, 2, c, scale=0.2)
+
+        # each ResnetBlock's block1 carries a FiLM, its block2 none
+        for film in (with_film, None):
+            def make(dtype, rows=rows, c=c, x32=x32, gamma=gamma, beta=beta,
+                     film=film):
+                x = x32.to(dtype)
+                # x in, out, film and the affine; about 10 float operations
+                # an element (two for the statistics, eight to normalise and
+                # SiLU)
+                return dict(
+                    kern=lambda: gs.groupnorm_silu(x, gamma, beta, film),
+                    plain=lambda: gs.groupnorm_silu_plain(x, gamma, beta, film),
+                    bytes=(2 * b * rows * c * es(dtype) + 8 * c
+                           + (0 if film is None else 8 * b * c)),
+                    flops=10 * b * rows * c, flops_dtype='float32')
+
+            yield ('groupnorm_silu',
+                   {'n': rows, 'c': c, 'film': film is not None}, make)
+
+    for n in flash_shapes:
+        qkv32 = randn(b, n, 3, 4, 32)
+
+        def make(dtype, n=n, qkv32=qkv32):
+            # the transposed views of one projection, as Attention passes them
+            qkv = qkv32.to(dtype)
+            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+            return dict(
+                kern=lambda: at.attention(q, k, v),
+                plain=lambda: at.attention_plain(q, k, v),
+                library=lambda: F.scaled_dot_product_attention(q, k, v),
+                bytes=4 * b * 4 * n * 32 * es(dtype),
+                flops=4 * b * 4 * n * n * 32)
+
+        yield 'attention', {'n': n, 'c': 128}, make
+
+    for n in linear_shapes:
+        qkv32 = randn(b, n, 384)
+
+        def make_qkv(dtype, n=n, qkv32=qkv32):
+            qkv = qkv32.to(dtype)
+            return dict(
+                kern=lambda: la.linear_attention_qkv(qkv),
+                plain=lambda: la.linear_attention_qkv_plain(qkv),
+                bytes=4 * b * n * 128 * es(dtype),
+                flops=2 * 2 * b * n * 128 * 32)
+
+        def make_sep(dtype, n=n, qkv32=qkv32):
+            q, k, v = (t.contiguous()
+                       for t in qkv32.to(dtype).chunk(3, dim=-1))
+            return dict(
+                kern=lambda: la.linear_attention(q, k, v),
+                plain=lambda: la.linear_attention_plain(q, k, v),
+                bytes=4 * b * n * 128 * es(dtype),
+                flops=2 * 2 * b * n * 128 * 32)
+
+        yield 'linear_attention_qkv', {'n': n, 'c': 128}, make_qkv
+        yield 'linear_attention', {'n': n, 'c': 128}, make_sep
+
+
+def _largest(shapes):
+    """The one shape with the most elements, as a tuple of shapes."""
+    def size(s):
+        return s if isinstance(s, int) else s[0] * s[1]
+    return (max(shapes, key=size),)
+
+
+def phase_kernels(torch, device, *, b=8, lin_shapes=LINATTN_SHAPES,
+                  attn_shapes=ATTN_SHAPES, gn_shapes=GN_SHAPES,
+                  linear_shapes=LINEAR_SHAPES, flash_shapes=FLASH_SHAPES,
+                  iters=5, seed=0):
+    """Each kernel against its plain version at the given shapes, bf16 and f32,
+    at batch b, and at its largest shape also at 2 b, the batch class CFG
+    gives. Inputs come from a seeded generator, weights scaled by
+    1/sqrt(fan-in)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    flush = (torch.empty(64 << 20, dtype=torch.uint8, device=device)
+             if device.type == 'cuda' else None)
+    shapes = dict(lin_shapes=lin_shapes, attn_shapes=attn_shapes,
+                  gn_shapes=gn_shapes, linear_shapes=linear_shapes,
+                  flash_shapes=flash_shapes)
+    largest = {k: _largest(v) for k, v in shapes.items()}
+    todo = itertools.chain(
+        zip(itertools.repeat(b),
+            kernel_cases(torch, device, b, gen, **shapes)),
+        zip(itertools.repeat(2 * b),
+            kernel_cases(torch, device, 2 * b, gen, **largest)))
+    cases = []
+    for batch, (kind, shape, make) in todo:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).replace('torch.', '')
+            case = make(dtype)
+            got, want = case['kern']().float(), case['plain']().float()
+            if device.type == 'cuda':
+                torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            ref_max = want.abs().max().item()
+            ok, tol = _within(err, ref_max, dtype, torch)
+            ok = ok and bool(torch.isfinite(got).all())
+            del got, want
+            by_bytes = case['bytes'] / HBM_BYTES_PER_S * 1e3
+            by_ops = (case['flops']
+                      / PEAK_FLOPS[case.get('flops_dtype', name)] * 1e3)
+            library = case.get('library')
+            cases.append({
+                'kernel': kind, **shape, 'b': batch, 'dtype': name,
+                'max_abs_err': err, 'tol': tol, 'ok': ok,
+                'ms': time_ms(torch, case['kern'], device, iters, flush),
+                'plain_ms': time_ms(torch, case['plain'], device, iters, flush),
+                'library_ms': (None if library is None else
+                               time_ms(torch, library, device, iters, flush)),
+                'bytes': case['bytes'], 'flops': case['flops'],
+                'bound_ms': max(by_bytes, by_ops),
+                'bound_by': 'bytes' if by_bytes >= by_ops else 'operations'})
     return {'phase': 'kernels', 'ok': all(c['ok'] for c in cases),
             'cases': cases}
 
 
 def build_flagship(torch, device, *, dim=128, dim_mults=(1, 2, 4, 8),
-                   full_attn=(False, False, False, True), seed=0):
+                   full_attn=(False, False, False, True), seed=0,
+                   sampler='ancestral', ddim_eta=0.0, **flags):
     """The shipped config's net (conf/...dim128.yaml and Config defaults) and
-    its continuous-time wrapper, with weights drawn from a seed, bf16."""
+    its continuous-time wrapper, with weights drawn from a seed, bf16.
+    ``flags``: the U-Net's kernel flags."""
     from srgd_tpu_torch.diffusion.continuous import ContinuousDiffusion
     from srgd_tpu_torch.nn.unet import SRUnet
     net = SRUnet(dim=dim, dim_mults=dim_mults, full_attn=full_attn,
                  learned_sinusoidal_cond=True, learned_sinusoidal_dim=32,
-                 num_classes=3, dtype=torch.bfloat16, device=device)
+                 num_classes=3, dtype=torch.bfloat16, device=device, **flags)
     net.init_weights(torch.Generator(device='cpu').manual_seed(seed))
     return ContinuousDiffusion(net, image_size=256, noise_schedule='linear',
-                               num_sample_steps=250)
+                               num_sample_steps=250, sampler=sampler,
+                               ddim_eta=ddim_eta)
 
 
-def _attention_blocks(net) -> tuple[int, int]:
-    """(linear, full) attention blocks one U-Net forward runs."""
-    from srgd_tpu_torch.nn.layers import Attention, LinearAttention
+def _expected_launches(net, forwards: int) -> tuple[dict, dict]:
+    """Launches of each kernel that ``forwards`` U-Net forwards of ``net``
+    make, and that one forward makes: one per module that routes to it."""
+    from srgd_tpu_torch.nn.layers import Attention, Block, LinearAttention
     mods = list(net.modules())
-    return (sum(isinstance(m, LinearAttention) for m in mods),
-            sum(isinstance(m, Attention) for m in mods))
+    blocks = [m for m in mods if isinstance(m, Block)]
+    linear = [m for m in mods if isinstance(m, LinearAttention)]
+    full = [m for m in mods if isinstance(m, Attention)]
+    # bf16 with `fused` keeps the whole-block kernel under use_pallas
+    to_flash = [m for m in full if m.use_pallas and not m.fused]
+    per_forward = {
+        'linattn_block': sum(not m.use_pallas for m in linear),
+        'attn_block': len(full) - len(to_flash),
+        'groupnorm_silu': sum(m.use_pallas for m in blocks),
+        'attention': len(to_flash),
+        'linear_attention': 0,
+        'linear_attention_qkv': sum(m.use_pallas for m in linear),
+    }
+    return {k: v * forwards for k, v in per_forward.items()}, per_forward
 
 
-def phase_slice(torch, device, *, size=512, tile_size=256, steps=4,
-                batch_size=8, seed=0, **net_kw):
-    """Full-width tiled ancestral sampling with class CFG (doubled batch)."""
+def _sample_counted(torch, device, wrapper, cond, label, *, steps, tile_size,
+                    batch_size, noise_seed, start=0):
+    """One tiled class-CFG sampling run (steps ``start`` .. ``steps`` - 1 of
+    ``steps``) with the launch counts set to 0 just before and read just
+    after. Returns (out, forwards, launches, seconds)."""
     from srgd_tpu_torch.diffusion.continuous import GeneratorNoise
-    from srgd_tpu_torch.kernels import attn_block as ab
-    from srgd_tpu_torch.kernels import linattn_block as lb
-    wrapper = build_flagship(torch, device, seed=seed, **net_kw)
-    gen = torch.Generator(device=device).manual_seed(seed + 1)
-    cond = torch.rand((1, size, size, 3), generator=gen, device=device)
-    label = torch.tensor([1], device=device)
-    n_lin, n_full = _attention_blocks(wrapper.net)
-
     forwards = 0
     net_forward = wrapper.net.forward
 
@@ -188,50 +402,191 @@ def phase_slice(torch, device, *, size=512, tile_size=256, steps=4,
         return net_forward(*a, **k)
 
     wrapper.net.forward = counted
-    lb.launches = ab.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     out = wrapper.tiled_sample(
         cond, label, batch_size=batch_size, tile_size=tile_size,
         class_cond_scale=2.0, num_sample_steps=steps,
-        noise=GeneratorNoise(seed + 2, device))
+        generation_start_steps=start, noise=GeneratorNoise(noise_seed, device))
     if device.type == 'cuda':
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    lin, full = lb.launches, ab.launches
+    launches = read_counts()
     wrapper.net.forward = net_forward
+    return out, forwards, launches, seconds
 
-    # every forward launches each attention block's kernel once; a CPU
-    # rehearsal runs the plain versions, which never count
-    per_block = forwards if device.type == 'cuda' else 0
+
+def _slice_checks(torch, device, wrapper, out, size, forwards, launches):
+    # a CPU rehearsal runs the plain versions, which never count
+    expected, per_forward = _expected_launches(
+        wrapper.net, forwards if device.type == 'cuda' else 0)
     checks = {
         'shape': list(out.shape) == [1, size, size, 3],
         'finite': bool(torch.isfinite(out).all()),
         'in_unit_range': bool((out >= 0).all() and (out <= 1).all()),
-        'linattn_launches': lin == n_lin * per_block,
-        'attn_launches': full == n_full * per_block,
+        'forwards': forwards > 0,
     }
+    for name in KERNELS:
+        checks[f'{name}_launches'] = launches[name] == expected[name]
+    return checks, per_forward
+
+
+def _slice_inputs(torch, device, size, seed):
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    cond = torch.rand((1, size, size, 3), generator=gen, device=device)
+    return cond, torch.tensor([1], device=device)
+
+
+def phase_slice(torch, device, *, size=512, tile_size=256, steps=2,
+                batch_size=8, seed=0, **net_kw):
+    """Full-width tiled ancestral sampling with class CFG (doubled batch)
+    through the default net: the two whole-block attention kernels."""
+    wrapper = build_flagship(torch, device, seed=seed, **net_kw)
+    cond, label = _slice_inputs(torch, device, size, seed)
+    out, forwards, launches, seconds = _sample_counted(
+        torch, device, wrapper, cond, label, steps=steps, tile_size=tile_size,
+        batch_size=batch_size, noise_seed=seed + 2)
+    checks, per_forward = _slice_checks(torch, device, wrapper, out, size,
+                                        forwards, launches)
     return {'phase': 'slice', 'ok': all(checks.values()), 'checks': checks,
             'shape': list(out.shape), 'steps': steps, 'forwards': forwards,
-            'linattn_launches': lin, 'attn_launches': full,
-            'linattn_blocks': n_lin, 'attn_blocks': n_full,
+            'launches': launches, 'per_forward': per_forward,
             'seconds': seconds, 'seconds_per_step': seconds / steps,
             'out_mean': out.mean().item()}
 
 
-def phase_bench(torch, device, *, lr_size=512, tile_size=256, batch_size=8,
-                seed=0, **net_kw):
-    """One even and one odd step at the bench geometry: a lr_size LR input
-    upscaled x4 (2048 out, 2304 canvas at tile 256), no CFG. The last two of
-    250 steps run (248 even, 249 odd) and then the last alone, each after a
-    warm-up, timed on the host clock around a synchronised call; the even
-    step is their difference."""
+def phase_slice_pallas(torch, device, *, size=512, tile_size=256, steps=4,
+                       batch_size=8, seed=0, pair_rows=256 * 256, **net_kw):
+    """The ``use_pallas`` / ``use_pallas_attention`` / ``fused_linattn=False``
+    net through the tiled DDIM(eta = 1) sampler with class CFG: kernels
+    ``groupnorm_silu``, ``linear_attention_qkv`` and ``attention``."""
+    from srgd_tpu_torch.diffusion.continuous import ContinuousDiffusion
+    from srgd_tpu_torch.kernels import linear_attention as la
+    from srgd_tpu_torch.nn.layers import Attention, LinearAttention
+    ddim = dict(sampler='ddim', ddim_eta=1.0)
+    wrapper = build_flagship(torch, device, seed=seed, **ddim, **PALLAS_FLAGS,
+                             **net_kw)
+    cond, label = _slice_inputs(torch, device, size, seed)
+    run = dict(tile_size=tile_size, batch_size=batch_size, noise_seed=seed + 2)
+    out, forwards, launches, seconds = _sample_counted(
+        torch, device, wrapper, cond, label, steps=steps, **run)
+    checks, per_forward = _slice_checks(torch, device, wrapper, out, size,
+                                        forwards, launches)
+
+    # The default net on the same weights. One U-Net forward of each on the
+    # same tile batch holds the second kernel set to the first at the net
+    # level: both outputs are bf16 with different rounding points, a wrong
+    # kernel gives a difference of the output's own size. With random weights
+    # an attention block adds little to its residual, so each attention block
+    # of the flagged net is also run on the input its twin saw in that
+    # forward and held to the twin's output. Sampling from pure
+    # noise divides by alpha ~ 0.007 in the first steps, so with random
+    # weights it amplifies that rounding difference past the clamp: the
+    # sampled outputs' difference is reported, not checked.
+    default = build_flagship(torch, device, seed=seed, **ddim, **net_kw)
+    gen = torch.Generator(device=device).manual_seed(seed + 5)
+    tile = (batch_size, 3, tile_size, tile_size)
+    fwd = dict(cond=torch.rand(tile, generator=gen, device=device) * 2 - 1,
+               class_label=torch.arange(batch_size, device=device) % 3)
+    x = torch.randn(tile, generator=gen, device=device)
+    t = torch.rand(batch_size, generator=gen, device=device)
+    seen = {}
+    hooks = [m.register_forward_hook(
+        lambda mod, args, y, name=name: seen.update({name: (args[0], y)}))
+        for name, m in default.net.named_modules()
+        if isinstance(m, (Attention, LinearAttention))]
+
+    def rel_diff(got, want):
+        got, want = got.float(), want.float()
+        return ((got - want).abs().max() / want.abs().max()).item()
+
+    with torch.inference_mode():
+        eps_default = default.net(x, t, **fwd)
+        for hook in hooks:
+            hook.remove()
+        eps = wrapper.net(x, t, **fwd)
+        forward_rel_diff = rel_diff(eps, eps_default)
+        flagged = dict(wrapper.net.named_modules())
+        block_rel_diff = max(rel_diff(flagged[name](x_in), y)
+                             for name, (x_in, y) in seen.items())
+    del seen
+    checks['forward_tracks_default_net'] = (
+        bool(torch.isfinite(eps).all())
+        and forward_rel_diff <= PALLAS_VS_DEFAULT_MAX)
+    checks['attention_blocks_track_default_net'] = (
+        block_rel_diff <= PALLAS_VS_DEFAULT_MAX)
+    diff_from_noise = (out - _sample_counted(
+        torch, device, default, cond, label, steps=steps, **run)[0]
+    ).abs().max().item()
+    del default
+
+    # two steps of DPM-Solver++(2M) on the same net
+    dpmpp = ContinuousDiffusion(wrapper.net, image_size=256, sampler='dpmpp')
+    out_dp, _, dp_launches, _ = _sample_counted(
+        torch, device, dpmpp, cond, label, steps=2, **run)
+    checks['dpmpp_finite_in_unit_range'] = bool(
+        torch.isfinite(out_dp).all() and (out_dp >= 0).all()
+        and (out_dp <= 1).all())
+
+    # the separate-q-k-v entry on a stage-0 projection of this net: the same
+    # device code as the packed entry, so the two agree bit for bit
+    attn = wrapper.net.downs[0][2]
+    gen = torch.Generator(device=device).manual_seed(seed + 3)
+    side = int(pair_rows ** 0.5)
+    x = torch.randn((batch_size, attn.to_qkv.in_channels, side, side),
+                    generator=gen, device=device).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    with torch.inference_mode():
+        qkv = attn.to_qkv(attn.norm(x)).permute(0, 2, 3, 1).reshape(
+            batch_size, side * side, -1)
+        q, k, v = (t.contiguous() for t in qkv.chunk(3, dim=-1))
+        reset_counts()
+        separate = la.linear_attention(q, k, v)
+        pair_launches = read_counts()
+        packed = la.linear_attention_qkv(qkv)
+    if device.type == 'cuda':
+        torch.cuda.synchronize()
+    on_card = int(device.type == 'cuda')
+    pair_diff = (separate.float() - packed.float()).abs().max().item()
+    # on the CPU the two plain versions differ by the order of their sums
+    checks['entry_pair_equal'] = pair_diff <= (
+        0.0 if on_card else BF16_RTOL * packed.float().abs().max().item())
+    checks['entry_pair_launches'] = pair_launches == {
+        **dict.fromkeys(KERNELS, 0), 'linear_attention': on_card}
+
+    return {'phase': 'slice_pallas', 'ok': all(checks.values()),
+            'checks': checks, 'shape': list(out.shape), 'steps': steps,
+            'sampler': 'ddim', 'ddim_eta': 1.0, 'forwards': forwards,
+            'launches': launches, 'per_forward': per_forward,
+            'forward_rel_diff_vs_default_net': forward_rel_diff,
+            'attention_block_rel_diff_vs_default_net': block_rel_diff,
+            'max_abs_diff_vs_default_net_from_noise': diff_from_noise,
+            'dpmpp_launches': dp_launches,
+            'entry_pair': {'shape': list(qkv.shape), 'max_abs_diff': pair_diff,
+                           'drive_launches': pair_launches['linear_attention']},
+            'seconds': seconds, 'seconds_per_step': seconds / steps,
+            'out_mean': out.mean().item()}
+
+
+def _bench_net(torch, device, wrapper, cond, *, tile_size, batch_size, seed,
+               forward_iters):
+    """ms of one forward on a tile batch, and of one even and one odd sampler
+    step: the last two of 250 steps run (248 even, 249 odd) and then the last
+    alone, each after a warm-up, timed on the host clock around a synchronised
+    call; the even step is their difference."""
     from srgd_tpu_torch.diffusion.continuous import GeneratorNoise
-    from srgd_tpu_torch.tiling import make_geometry
-    wrapper = build_flagship(torch, device, seed=seed, **net_kw)
-    size = 4 * lr_size
-    geom = make_geometry(size, size, tile_size)
-    gen = torch.Generator(device=device).manual_seed(seed + 1)
-    cond = torch.rand((1, size, size, 3), generator=gen, device=device)
+
+    gen = torch.Generator(device=device).manual_seed(seed + 4)
+    x = torch.randn((batch_size, 3, tile_size, tile_size), generator=gen,
+                    device=device)
+    t = torch.zeros(batch_size, device=device)
+
+    def forward():
+        with torch.inference_mode():
+            wrapper.net(x, t, cond=x)
+
+    forward()
+    forward_ms = time_ms(torch, forward, device, forward_iters)
 
     def run(start):
         out = wrapper.tiled_sample(
@@ -250,28 +605,113 @@ def phase_bench(torch, device, *, lr_size=512, tile_size=256, batch_size=8,
         ms[start] = (time.perf_counter() - t0) * 1e3
     odd, even = ms[249], ms[248] - ms[249]
     ok = bool(torch.isfinite(out).all()) and even > 0
-    return {'phase': 'bench', 'ok': ok,
-            'canvas': [geom.padded_h, geom.padded_w],
-            'tiles': [geom.n_tiles_even, geom.n_tiles_odd],
-            'batch_size': batch_size, 'two_step_ms': ms[248],
-            'even_step_ms': even, 'odd_step_ms': odd,
-            'ms_per_step': ms[248] / 2,
-            'implied_seconds_250_steps': 125 * ms[248] / 1e3}
+    return ok, {'forward_ms': forward_ms, 'two_step_ms': ms[248],
+                'even_step_ms': even, 'odd_step_ms': odd,
+                'ms_per_step': ms[248] / 2,
+                'implied_seconds_250_steps': 125 * ms[248] / 1e3}
 
 
-def summary(kernels, slice_):
+def phase_bench(torch, device, *, lr_size=512, tile_size=256, batch_size=8,
+                seed=0, forward_iters=5, **net_kw):
+    """The bench geometry: a lr_size LR input upscaled x4 (2048 out, 2304
+    canvas at tile 256), no CFG, ancestral, bf16. The default net's numbers,
+    then the same with the ``use_pallas`` net under ``pallas_`` keys."""
+    from srgd_tpu_torch.tiling import make_geometry
+    size = 4 * lr_size
+    geom = make_geometry(size, size, tile_size)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    cond = torch.rand((1, size, size, 3), generator=gen, device=device)
+    res = {'phase': 'bench', 'canvas': [geom.padded_h, geom.padded_w],
+           'tiles': [geom.n_tiles_even, geom.n_tiles_odd],
+           'batch_size': batch_size}
+    oks = []
+    for prefix, flags in (('', {}), ('pallas_', PALLAS_FLAGS)):
+        wrapper = build_flagship(torch, device, seed=seed, **flags, **net_kw)
+        ok, nums = _bench_net(torch, device, wrapper, cond,
+                              tile_size=tile_size, batch_size=batch_size,
+                              seed=seed, forward_iters=forward_iters)
+        oks.append(ok)
+        res.update({prefix + k: v for k, v in nums.items()})
+        del wrapper
+    res['ok'] = all(oks)
+    return res
+
+
+def phase_profile(torch, device, *, tile_size=256, batch_size=8, seed=0,
+                  forwards=3, top=24, **net_kw):
+    """``torch.profiler`` over ``forwards`` U-Net forwards of the default and
+    of the ``use_pallas`` net (b = 8 tiles of 256 px, bf16): self device time
+    per kernel name, in ms per forward, largest first, with the sum over all
+    kernels beside the host-clock time of a forward. Not part of the default
+    run: ``python3 chip_smoke.py --profile`` adds it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    on_card = device.type == 'cuda'
+    gen = torch.Generator(device=device).manual_seed(seed + 4)
+    x = torch.randn((batch_size, 3, tile_size, tile_size), generator=gen,
+                    device=device)
+    t = torch.zeros(batch_size, device=device)
+    res = {'phase': 'profile', 'forwards': forwards, 'nets': {}}
+    for name, flags in (('default', {}), ('use_pallas', PALLAS_FLAGS)):
+        net = build_flagship(torch, device, seed=seed, **flags, **net_kw).net
+
+        def run(n):
+            with torch.inference_mode():
+                for _ in range(n):
+                    net(x, t, cond=x)
+            if on_card:
+                torch.cuda.synchronize()
+
+        run(2)
+        t0 = time.perf_counter()
+        run(forwards)
+        host_ms = (time.perf_counter() - t0) * 1e3 / forwards
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card
+                                         else [])
+        with profile(activities=acts) as prof:
+            run(forwards)
+        attr = 'self_device_time_total' if on_card else 'self_cpu_time_total'
+        rows = sorted(((getattr(e, attr) / 1e3 / forwards, e.count / forwards,
+                        e.key) for e in prof.key_averages()
+                       if getattr(e, attr) > 0
+                       # on the card kernels only, not the operators over them
+                       and (not on_card or e.device_type == DeviceType.CUDA)),
+                      reverse=True)
+        res['nets'][name] = {
+            'host_ms_per_forward': host_ms,
+            'kernel_ms_per_forward': sum(r[0] for r in rows),
+            'top': [{'ms': ms, 'calls': calls, 'name': key[:200]}
+                    for ms, calls, key in rows[:top]]}
+        del net
+    res['ok'] = all(n['kernel_ms_per_forward'] > 0
+                    for n in res['nets'].values())
+    return res
+
+
+def summary(kernels, slice_, slice_pallas):
+    """One entry per kernel: ``launches``, its launches on the two sampling
+    paths (each counted from 0 around that run alone), the largest error over
+    its cases, and the times and bound of its first bfloat16 case.
+    ``drive_launches`` counts launches outside any path: no module calls
+    ``linear_attention``, so its ``launches`` is 0 and the one direct call of
+    ``slice_pallas`` stands there."""
+    launches = {name: slice_['launches'][name] + slice_pallas['launches'][name]
+                for name in KERNELS}
+    drive = {**dict.fromkeys(KERNELS, 0),
+             'linear_attention': slice_pallas['entry_pair']['drive_launches']}
     out = []
-    for name, src, rep, launches in (
-            ('linattn_block', 'srgd_tpu_torch/csrc/linattn_block.cu',
-             LINATTN_REPLACES, slice_['linattn_launches']),
-            ('attn_block', 'srgd_tpu_torch/csrc/attn_block.cu',
-             ATTN_REPLACES, slice_['attn_launches'])):
+    for name, (replaces, source, _, _) in KERNELS.items():
         mine = [c for c in kernels['cases'] if c['kernel'] == name]
         main = next(c for c in mine if c['dtype'] == 'bfloat16')
-        out.append({'name': name, 'route': 'cuda', 'source': src,
-                    'replaces': rep, 'launches': launches,
+        out.append({'name': name, 'route': 'cuda',
+                    'source': f'srgd_tpu_torch/csrc/{source}',
+                    'replaces': replaces, 'launches': launches[name],
+                    'drive_launches': drive[name],
                     'max_abs_err': max(c['max_abs_err'] for c in mine),
-                    'ms': main['ms'], 'plain_ms': main['plain_ms']})
+                    'ms': main['ms'], 'plain_ms': main['plain_ms'],
+                    'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
+                    'library_ms': main['library_ms'],
+                    'shape': {k: main[k] for k in ('b', 'n', 'c')}})
     return {'kernels': out}
 
 
@@ -291,19 +731,25 @@ def main() -> int:
     dev = phase_device(torch)
     emit(dev)
     emit(phase_build())
-    kernels = phase_kernels(torch, device)
-    emit(kernels)
-    torch.cuda.synchronize()
-    slice_ = phase_slice(torch, device)
-    emit(slice_)
-    torch.cuda.synchronize()
-    bench = phase_bench(torch, device)
-    emit(bench)
-    torch.cuda.synchronize()
-    emit(summary(kernels, slice_))
-    failed = [p['phase'] for p in (kernels, slice_, bench) if not p['ok']]
-    if failed:
-        print(f'chip_smoke: failed phases {failed}', file=sys.stderr)
+    todo = [phase_kernels, phase_slice, phase_slice_pallas, phase_bench]
+    if '--profile' in sys.argv[1:]:
+        todo.append(phase_profile)
+    phases = []
+    for phase in todo:
+        phases.append(phase(torch, device))
+        emit(phases[-1])
+        torch.cuda.synchronize()
+    kernels, slice_, slice_pallas = phases[:3]
+    table = summary(kernels, slice_, slice_pallas)
+    emit(table)
+    failed = [p['phase'] for p in phases if not p['ok']]
+    # a kernel no module calls is held to its direct drive instead
+    unlaunched = [k['name'] for k in table['kernels']
+                  if k['launches' if k['name'] not in OFF_PATH
+                       else 'drive_launches'] < 1]
+    if failed or unlaunched:
+        print(f'chip_smoke: failed phases {failed}; kernels never launched '
+              f'{unlaunched}', file=sys.stderr)
         return 1
     print(dev['nvidia_smi'], flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu',

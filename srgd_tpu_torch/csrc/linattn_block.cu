@@ -12,7 +12,8 @@
 // sequence: each block streams its rows with the same online-max update and
 // writes partials (m, z of hidden; the head-diagonal 32x32 blocks of ctx,
 // the only ones the mask keeps). A merge kernel rescales the partials by
-// exp(m_i - m), normalises once and rounds the context to T. Phase B owns
+// exp(m_i - m), normalises once and rounds the context to T (the stream and
+// the merge are common.cuh's, shared with linear_attention.cu). Phase B owns
 // whole rows, because the output RMSNorm reduces over all c <= 512 columns:
 // each warp holds 4 full rows, so both row reductions are warp reductions.
 //
@@ -52,24 +53,13 @@ phase_a(const T* __restrict__ x, const float* __restrict__ g1s, const T* __restr
   float* alpha = z_run + MAXH;         // hidden
 
   const int split = blockIdx.x, bi = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int nh = hidden / DH;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row_begin = split * rows_per_split;
   const int row_end = min(row_begin + rows_per_split, n);
   const T* xb = x + (size_t)bi * n * c;
-  constexpr int LDKV = 2 * MAXH;
 
-  for (int j = tid; j < MAXH; j += THREADS) {
-    m_run[j] = NEG;
-    z_run[j] = 0.f;
-  }
-  // ctx accumulator: warp w owns head w/2, context rows (w%2)*16 + i of that
-  // head, and column `lane` of the head's 32.
-  const int head = warp >> 1;
-  const int dbase = head * DH + (warp & 1) * 16;
   float acc[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+  kv_stream_init(m_run, z_run, acc);
 
   for (int r0 = row_begin; r0 < row_end; r0 += TM) {
     const int nvalid = min(TM, row_end - r0);
@@ -91,67 +81,9 @@ phase_a(const T* __restrict__ x, const float* __restrict__ g1s, const T* __restr
         kv[r * LDKV + MAXH + col] = round_to<T>(pv[i][j]);
       }
     }
-    __syncthreads();
-
-    // online k-softmax statistics, one thread per hidden column
-    if (tid < hidden) {
-      float mt = NEG;
-      for (int r = 0; r < TM; ++r) mt = fmaxf(mt, kv[r * LDKV + tid]);
-      const float mo = m_run[tid];
-      const float mn = fmaxf(mo, mt);
-      const float al = expf(mo - mn);
-      float s = 0.f;
-      for (int r = 0; r < TM; ++r) {
-        const float e = expf(kv[r * LDKV + tid] - mn);
-        s += e;
-        kv[r * LDKV + tid] = round_to<T>(e);
-      }
-      z_run[tid] = z_run[tid] * al + s;
-      m_run[tid] = mn;
-      alpha[tid] = al;
-    }
-    __syncthreads();
-
-    // ctx[d][e] = ctx[d][e] * alpha[d] + sum_r ek[r][d] * v[r][e], per head
-    if (head < nh) {
-#pragma unroll
-      for (int i = 0; i < 16; ++i) acc[i] *= alpha[dbase + i];
-      for (int r = 0; r < TM; ++r) {
-        const float ve = kv[r * LDKV + MAXH + head * DH + lane];
-#pragma unroll
-        for (int i = 0; i < 16; ++i) acc[i] = fmaf(kv[r * LDKV + dbase + i], ve, acc[i]);
-      }
-    }
+    kv_stream_tile<T>(kv, m_run, z_run, alpha, acc, hidden);
   }
-
-  const size_t p = (size_t)bi * nsplit + split;
-  for (int j = tid; j < hidden; j += THREADS) {
-    part_m[p * hidden + j] = m_run[j];
-    part_z[p * hidden + j] = z_run[j];
-  }
-  if (head < nh) {
-#pragma unroll
-    for (int i = 0; i < 16; ++i) part_ctx[(p * hidden + dbase + i) * DH + lane] = acc[i];
-  }
-}
-
-// ctxn[b][d][e] = round_T(sum_s ctx_s[d][e] e^(m_s[d]-m[d]) / sum_s z_s[d] e^(m_s[d]-m[d]))
-// grid (hidden, b), one warp: lane = e.
-template <typename T>
-__global__ void merge(const float* __restrict__ part_m, const float* __restrict__ part_z,
-                      const float* __restrict__ part_ctx, float* __restrict__ ctxn, int hidden,
-                      int nsplit) {
-  const int d = blockIdx.x, bi = blockIdx.y, e = threadIdx.x;
-  const size_t p0 = (size_t)bi * nsplit;
-  float m = NEG;
-  for (int s = 0; s < nsplit; ++s) m = fmaxf(m, part_m[(p0 + s) * hidden + d]);
-  float z = 0.f, cx = 0.f;
-  for (int s = 0; s < nsplit; ++s) {
-    const float w = expf(part_m[(p0 + s) * hidden + d] - m);
-    z += part_z[(p0 + s) * hidden + d] * w;
-    cx += part_ctx[((p0 + s) * hidden + d) * DH + e] * w;
-  }
-  ctxn[((size_t)bi * hidden + d) * DH + e] = round_to<T>(cx / z);
+  kv_stream_store(m_run, z_run, acc, part_m, part_z, part_ctx, (size_t)bi * nsplit + split, hidden);
 }
 
 template <typename T>
@@ -177,38 +109,13 @@ phase_b(const T* __restrict__ x, const float* __restrict__ g1s, const T* __restr
   float pq[4][4];
   zero(pq);
   rows_matmul<T, 4>(pq, ys, c, c, wq, hidden, 0, ws);
-  // per-head softmax over the head's 32 columns, shifted by the row max over
-  // all heads (exact: a row-shared shift), then / denom * scale, rounded
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float mx = NEG;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (j < nh) mx = fmaxf(mx, pq[i][j]);
-    mx = warp_max(mx);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float e = j < nh ? expf(pq[i][j] - mx) : 0.f;
-      const float den = warp_sum(e);
-      if (j < nh) qs[(warp * 4 + i) * MAXH + j * DH + lane] = round_to<T>(e / den * SCALE);
-    }
-  }
+  // per-head softmax over the head's 32 columns, / denom * scale, rounded
+  head_softmax_rows<T>(pq, qs, nh, SCALE);
   __syncthreads();
 
   // attn[r][j*32 + e] = sum_d qn[r][j*32 + d] * ctxn[j*32 + d][e]
   float pa[4][4];
-  zero(pa);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    if (j < nh) {
-      for (int d = 0; d < DH; ++d) {
-        const float cv = cs[(j * DH + d) * DH + lane];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          pa[i][j] = fmaf(qs[(warp * 4 + i) * MAXH + j * DH + d], cv, pa[i][j]);
-      }
-    }
-  }
+  rows_times_context(pa, qs, cs, nh);
   __syncthreads();  // all reads of qs are done
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -263,9 +170,9 @@ int launch(const void* x, const void* g1s, const void* wq, const void* wk, const
       static_cast<float*>(part_ctx), n, c, hidden, rows_per_split, nsplit);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  merge<T><<<dim3(hidden, b), DH, 0, st>>>(
+  merge_kv_partials<T><<<dim3(hidden, b), DH, 0, st>>>(
       static_cast<const float*>(part_m), static_cast<const float*>(part_z),
-      static_cast<const float*>(part_ctx), static_cast<float*>(ctxn), hidden, nsplit);
+      static_cast<const float*>(part_ctx), static_cast<float*>(ctxn), hidden, nsplit, 1.0f);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   phase_b<T><<<dim3((n + TM - 1) / TM, b), THREADS, smem_b, st>>>(

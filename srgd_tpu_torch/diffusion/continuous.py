@@ -1,16 +1,26 @@
 """Continuous-time Gaussian diffusion (VDM), the reference's shipped family:
-the ancestral sampler, untiled and alternating-grid tiled.
+the ancestral, DDIM(eta) and DPM-Solver++(2M) samplers, untiled and
+alternating-grid tiled.
 
-Counterpart of ``srgd_tpu/diffusion/continuous.py`` with ``sampler='ancestral'``.
-The JAX version compiles the step loop into one scan; here it is a plain
-Python loop of eager steps. Step math (per step i, log-SNR from a float64
-host table):
+Counterpart of ``srgd_tpu/diffusion/continuous.py``. The JAX version compiles
+the step loop into one scan; here it is a plain Python loop of eager steps.
+Step math (per step i, log-SNR from a float64 host table):
 
     c        = -expm1(logSNR - logSNR_next)
     alpha^2  = sigmoid(logSNR),  sigma^2 = sigmoid(-logSNR)
     x0       = (x - sigma * eps_hat) / alpha, clamped to [-1, 1]
+
+    ancestral:
     mean     = alpha_next * (x * (1 - c) / alpha + c * x0)
     x_next   = mean + sqrt(sigma_next^2 * c) * noise   (no noise on the last step)
+
+    ddim (eps re-derived from the clamped x0; std = eta * sqrt(sigma_next^2 * c)):
+    x_next   = alpha_next * x0 + sqrt(sigma_next^2 - std^2) * eps + std * noise
+               (eta = 1 is the ancestral posterior; eta = 0 uses no noise)
+
+    dpmpp (2M, data prediction, lambda = logSNR / 2, h = lambda_next - lambda):
+    D        = x0 + (x0 - x0_prev) / (2 r),  r = h_prev / h   (first step: D = x0)
+    x_next   = sigma_next / sigma * x - alpha_next * expm1(-h) * D
 
 Noise. Every random draw comes from one noise source with three methods,
 each returning a float32 standard-normal tensor of the given shape on the
@@ -24,6 +34,9 @@ run's device. The samplers call them in this order:
 - ``sample``: ``init(shape)`` once unless ``init_noise`` is given, then
   ``step(i, shape)`` for each step but the last unless ``step_noises`` is
   given.
+
+``ddim`` with ``eta = 0`` and ``dpmpp`` use no step noise and draw none, so
+with ``GeneratorNoise`` their margin draws follow the init draw directly.
 
 ``GeneratorNoise`` (the default) draws them in that order from one seeded
 ``torch.Generator``. A test replays the JAX key schedule by handing in a
@@ -78,18 +91,21 @@ def _sigmoid(v):
     return _f32(1.0) / (_f32(1.0) + np.exp(-_f32(v)))
 
 
+SAMPLERS = ('ancestral', 'ddim', 'dpmpp')
+
+
 class ContinuousDiffusion:
-    """Wraps a denoiser net with the continuous-time ancestral sampler."""
+    """Wraps a denoiser net with the continuous-time samplers. ``sampler``:
+    'ancestral' (the reference's), 'ddim' (``ddim_eta`` 0 deterministic, 1
+    the ancestral posterior variance) or 'dpmpp' (DPM-Solver++(2M))."""
 
     def __init__(self, net, *, image_size: int, channels: int = 3,
                  noise_schedule: str = 'linear', num_sample_steps: int = 500,
                  clip_sample_denoised: bool = True, sampler: str = 'ancestral',
-                 deep_cache_interval: int = 0):
-        if sampler != 'ancestral':
-            raise NotImplementedError(
-                f'continuous sampler {sampler!r} is not ported to '
-                'srgd_tpu_torch yet (ROADMAP.md Queue 1 item 8); only '
-                "'ancestral' is")
+                 ddim_eta: float = 0.0, deep_cache_interval: int = 0):
+        if sampler not in SAMPLERS:
+            raise ValueError(f'unknown continuous sampler {sampler!r}; '
+                             f'supported: {", ".join(map(repr, SAMPLERS))}')
         if deep_cache_interval > 1:
             raise NotImplementedError(
                 'DeepCache sampling is not ported to srgd_tpu_torch yet '
@@ -104,6 +120,13 @@ class ContinuousDiffusion:
         self.noise_schedule = noise_schedule
         self.num_sample_steps = num_sample_steps
         self.clip_sample_denoised = clip_sample_denoised
+        self.sampler = sampler
+        self.ddim_eta = ddim_eta
+
+    @property
+    def uses_step_noise(self) -> bool:
+        return self.sampler == 'ancestral' or (self.sampler == 'ddim'
+                                               and bool(self.ddim_eta))
 
     def net_apply(self, x, time_b, cond, class_label, class_mask):
         """(B, H, W, C) in, float32 (B, H, W, C) out; the net runs on NCHW
@@ -125,9 +148,14 @@ class ContinuousDiffusion:
         return x_start * alpha + noise * sigma
 
     def p_sample_tiles(self, x, cond, class_label, noise, log_snr,
-                       log_snr_next, mode: str, scale: float, is_last: bool):
+                       log_snr_next, mode: str, scale: float, is_last: bool,
+                       prev_x0=None, log_snr_prev=None):
         """One reverse step on a batch of tiles (or whole images). Returns
-        (x_next, x_start). Scalars are float32, as in the JAX step."""
+        (x_next, x_start). Scalars are float32, as in the JAX step. For
+        'dpmpp' the caller threads the multistep state: ``prev_x0`` (the
+        previous step's x_start, shaped like x) and ``log_snr_prev``; both
+        None on the first executed step, where the update is the one-step
+        DDIM limit."""
         ls, lsn = _f32(log_snr), _f32(log_snr_next)
         c = -np.expm1(ls - lsn)
         alpha = np.sqrt(_sigmoid(ls))
@@ -140,8 +168,34 @@ class ContinuousDiffusion:
         eps = guided_denoise(self.net_apply, x, time_b, cond, class_label,
                              mode, scale)
         x_start = (x - float(sigma) * eps) / float(alpha)
-        if self.clip_sample_denoised:
+        clip = self.clip_sample_denoised
+        if clip:
             x_start = torch.clamp(x_start, -1.0, 1.0)
+
+        if self.sampler == 'dpmpp':
+            h = _f32(0.5) * (lsn - ls)
+            d = x_start
+            if prev_x0 is not None:
+                r = _f32(0.5) * (ls - _f32(log_snr_prev)) / h
+                d = x_start + (x_start - prev_x0) / float(_f32(2.0) * r)
+            x_next = (float(np.sqrt(sq_sigma_next) / sigma) * x
+                      - float(alpha_next * np.expm1(-h)) * d)
+            return x_next, x_start
+
+        if self.sampler == 'ddim':
+            if clip:    # eps re-derived from the clamped x0
+                eps = (x - float(alpha) * x_start) / float(sigma)
+            if not self.ddim_eta:
+                return (float(alpha_next) * x_start
+                        + float(np.sqrt(sq_sigma_next)) * eps), x_start
+            std = _f32(self.ddim_eta) * np.sqrt(np.maximum(sq_sigma_next * c,
+                                                           _f32(0.0)))
+            x_next = (float(alpha_next) * x_start
+                      + float(np.sqrt(np.maximum(sq_sigma_next - std * std,
+                                                 _f32(0.0)))) * eps)
+            return (x_next if is_last else x_next + float(std) * noise), x_start
+
+        if clip:
             mean = float(alpha_next) * (x * float(_f32(1.0) - c)
                                         / float(alpha) + float(c) * x_start)
         else:
@@ -177,7 +231,8 @@ class ContinuousDiffusion:
         cond = normalize_to_neg_one_to_one(condition_x)
         table = self.log_snr_table(n_steps)
         mode = resolve_guidance_mode(cond_scale, class_cond_scale)
-        if noise is None and (init_noise is None or step_noises is None):
+        needs_steps = self.uses_step_noise and step_noises is None
+        if noise is None and (init_noise is None or needs_steps):
             noise = GeneratorNoise(0, cond.device)
 
         if init_noise is None:
@@ -185,9 +240,10 @@ class ContinuousDiffusion:
         img = (self.q_sample_log_snr(cond, table[generation_start_steps],
                                      init_noise)
                if generation_start_steps > 0 else init_noise)
+        prev_x0 = None      # dpmpp: the previous step's x_start
         for i in range(generation_start_steps, n_steps):
             is_last = i == n_steps - 1
-            if is_last:
+            if is_last or not self.uses_step_noise:
                 nz = None
             elif step_noises is not None:
                 nz = step_noises[i]
@@ -196,8 +252,12 @@ class ContinuousDiffusion:
             scale = self._step_scale(i, mode, cond_scale, guidance_start_steps,
                                      class_cond_scale,
                                      class_guidance_start_steps)
-            img, _ = self.p_sample_tiles(img, cond, class_label, nz, table[i],
-                                         table[i + 1], mode, scale, is_last)
+            img, x_start = self.p_sample_tiles(
+                img, cond, class_label, nz, table[i], table[i + 1], mode,
+                scale, is_last, prev_x0=prev_x0,
+                log_snr_prev=table[max(i - 1, 0)])
+            if self.sampler == 'dpmpp':
+                prev_x0 = x_start
         return unnormalize_to_zero_to_one(torch.clamp(img, -1.0, 1.0))
 
     @torch.inference_mode()
@@ -237,28 +297,42 @@ class ContinuousDiffusion:
         cond_tiles, label_tiles, n_chunks, chunks, interior_mask = \
             prepare_tile_context(cond_padded, geom, b, batch_size, class_label)
 
+        # dpmpp threads a canvas of the previous step's x_start: each step's
+        # tiles read it on their own grid and scatter their x_start back
+        dpmpp = self.sampler == 'dpmpp'
+        x0_canvas = torch.zeros_like(img) if dpmpp else None
+
+        def tiled(canvas_t, p):
+            return pad_tiles_to_multiple(extract_tiles(canvas_t, geom, p),
+                                         chunks[p])
+
         for i in range(gss, n_steps):
             p = i % 2
             is_last = i == n_steps - 1
             scale = self._step_scale(i, mode, cond_scale, guidance_start_steps,
                                      class_cond_scale,
                                      class_guidance_start_steps)
-            tiles, n_orig = pad_tiles_to_multiple(extract_tiles(img, geom, p),
-                                                  chunks[p])
+            tiles, n_orig = tiled(img, p)
             nz = None
-            if not is_last:
-                nz, _ = pad_tiles_to_multiple(
-                    extract_tiles(noise.step(i, canvas), geom, p), chunks[p])
-            outs = []
+            if not is_last and self.uses_step_noise:
+                nz, _ = tiled(noise.step(i, canvas), p)
+            px = tiled(x0_canvas, p)[0] if dpmpp and i > gss else None
+            outs, x0s = [], []
             for k in range(n_chunks[p]):
                 sl = slice(k * chunks[p], (k + 1) * chunks[p])
-                nx, _ = self.p_sample_tiles(
+                nx, xs = self.p_sample_tiles(
                     tiles[sl], cond_tiles[p][sl],
                     None if label_tiles[p] is None else label_tiles[p][sl],
                     None if nz is None else nz[sl], table[i], table[i + 1],
-                    mode, scale, is_last)
+                    mode, scale, is_last,
+                    prev_x0=None if px is None else px[sl],
+                    log_snr_prev=table[max(i - 1, 0)])
                 outs.append(nx)
+                x0s.append(xs)
             img = scatter_tiles(img, torch.cat(outs)[:n_orig], geom, p)
+            if dpmpp:
+                x0_canvas = scatter_tiles(x0_canvas, torch.cat(x0s)[:n_orig],
+                                          geom, p)
 
             if p == 1 and interior_mask is not None:
                 # margin := q_sample(zeros, t_next) = sigma_next * noise, after

@@ -33,7 +33,7 @@ def build_wrapper(conf, net) -> ContinuousDiffusion:
             noise_schedule=conf.noise_schedule,
             num_sample_steps=conf.num_sample_steps,
             clip_sample_denoised=conf.clip_sample_denoised,
-            sampler=conf.continuous_sampler,
+            sampler=conf.continuous_sampler, ddim_eta=conf.ddim_eta,
             deep_cache_interval=conf.deep_cache_interval)
     if conf.model in GAUSSIAN_MODELS + ELUCIDATED_MODELS:
         raise NotImplementedError(

@@ -13,7 +13,8 @@ accepted-but-unused --backend flag.
 Port additions: --device (default cuda; asking for cuda without a card
 raises). Flags whose feature is not ported raise, naming the ROADMAP item,
 instead of being ignored. ``yaml`` and ``PIL`` are imported only where the
-CLI needs them.
+CLI needs them. ``--use_pallas`` keeps the JAX CLI's name: it switches the
+U-Net to the second kernel set (``conf.use_pallas_kernels``).
 """
 
 from __future__ import annotations
@@ -54,7 +55,9 @@ def parse_args(argv=None):
                    action='store_false')
     p.add_argument('--continuous_sampler', type=str, default=None,
                    choices=['ancestral', 'ddim', 'dpmpp'])
-    p.add_argument('--ddim_eta', type=float, default=None)
+    p.add_argument('--ddim_eta', type=float, default=None,
+                   help='stochasticity of --continuous_sampler ddim: 0 '
+                        'deterministic, 1 the ancestral posterior variance')
     p.add_argument('--seed', type=int, default=71)
     p.add_argument('--backend', type=str, default='ddp')  # accepted, unused
     p.add_argument('--precision', type=str, default='fp32',
@@ -74,7 +77,9 @@ def parse_args(argv=None):
     p.add_argument('--exec_mode', type=str, default='host',
                    choices=['host', 'scan'],
                    help='accepted; the port always runs a Python step loop')
-    p.add_argument('--use_pallas', action='store_true')
+    p.add_argument('--use_pallas', action='store_true',
+                   help='GroupNorm+SiLU and linear attention through the '
+                        'groupnorm_silu and linear_attention_qkv kernels')
     p.add_argument('--mesh', type=str, default='')
     p.add_argument('--device', type=str, default='cuda',
                    help="torch device to run on: 'cuda' (default) or 'cpu'")
@@ -92,16 +97,12 @@ def check_ported(args) -> None:
         (args.deep_cache > 1 or args.deep_cache_depth is not None or
          args.deep_cache_schedule is not None, '--deep_cache*', 9),
         (bool(args.mesh), '--mesh', 15),
-        (args.continuous_sampler in ('ddim', 'dpmpp') or
-         args.ddim_eta is not None, '--continuous_sampler ddim|dpmpp', 8),
-        (args.use_pallas, '--use_pallas', 'Queue 2 items 3-5'),
     ]
     for bad, flag, item in unported:
         if bad:
-            where = item if isinstance(item, str) else f'Queue 1 item {item}'
             raise NotImplementedError(
                 f'{flag} is not ported to srgd_tpu_torch yet (ROADMAP.md '
-                f'{where})')
+                f'Queue 1 item {item})')
 
 
 def resolve_device(name: str) -> torch.device:
@@ -209,7 +210,7 @@ def batch_sr_target_images(input_dir, output_dir, sampler: Sampler, scale=4,
 
 def build_sampler(args, noise_for_seed=GeneratorNoise) -> Sampler:
     """Config + flags -> the model on ``args.device`` -> a ``Sampler``."""
-    from srgd_tpu.config import load_config
+    from srgd_tpu_torch.config import load_config
     from srgd_tpu_torch.factory import get_model
     check_ported(args)
     device = resolve_device(args.device)
@@ -223,8 +224,11 @@ def build_sampler(args, noise_for_seed=GeneratorNoise) -> Sampler:
     conf.compute_dtype = {'fp32': 'float32', 'bf16': 'bfloat16'}[args.precision]
     conf.quantize = 'none'   # --precision fp32/bf16 overrides a YAML's quantize
     conf.tile_size = args.tile_size
+    conf.use_pallas_kernels = args.use_pallas
     if args.continuous_sampler:
         conf.continuous_sampler = args.continuous_sampler
+    if args.ddim_eta is not None:
+        conf.ddim_eta = args.ddim_eta
     wrapper, _ = get_model(conf, device=device)
     opts = dict(batch_size=args.batch_size, tile_size=args.tile_size,
                 tile_stride=conf.tile_stride or None,

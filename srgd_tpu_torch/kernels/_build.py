@@ -2,10 +2,12 @@
 
 The sources are compiled by ``nvcc`` for Hopper (``sm_90a``) into
 ``build/srgd_tpu_torch/`` at the repository root on first use, keyed by a hash
-of the sources and flags, and loaded with ``ctypes``. The kernels have plain C
-entry points: every pointer and the stream are passed as ``c_void_p`` and each
-entry point returns ``cudaGetLastError()``, which :func:`check` turns into an
-exception. There is no fallback: a missing ``nvcc`` or a failed build raises.
+of the sources and flags, and loaded with ``ctypes``: one ``nvcc`` call over
+all sources, which compiles them on parallel threads. The kernels have plain
+C entry points: every pointer and the stream are passed as ``c_void_p`` and
+each entry point returns ``cudaGetLastError()``, which :func:`check` turns
+into an exception. There is no fallback: a missing ``nvcc`` or a failed build
+raises.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'srgd_tpu_torch'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC')
+              '--threads', '0', '-shared', '-Xcompiler', '-fPIC')
 CUDA_BIN = '/usr/local/cuda/bin'   # searched after PATH and $CUDA_HOME/bin
 
 _lib = None
@@ -83,11 +85,12 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
-def entry(name: str, n_ptrs: int, n_ints: int):
-    """C entry point ``name(ptr * n_ptrs, int * n_ints, stream) -> int``."""
+def entry(name: str, n_ptrs: int, n_ints: int, n_floats: int = 0):
+    """C entry point
+    ``name(ptr * n_ptrs, int * n_ints, float * n_floats, stream) -> int``."""
     fn = getattr(load(), name)
     fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 

@@ -44,6 +44,24 @@ def _head_mask(hidden: int, dim_head: int, device) -> torch.Tensor:
     return (idx[:, None] == idx[None, :]).float()
 
 
+def linattn_core_plain(q, k, v, dim_head: int, cd):
+    """The linear-attention core on float32 q, k, v (b, n, hidden), v already
+    rounded to the compute dtype ``cd``: the per-head q softmax (scaled), the
+    k softmax over n and the head-masked context are rounded to ``cd``, the
+    products accumulate in float32. Returns float32 (b, n, hidden)."""
+    mask = _head_mask(q.shape[-1], dim_head, q.device)
+
+    def rnd(t):
+        return t.to(cd).float()
+
+    eq = torch.exp(q - torch.amax(q, dim=-1, keepdim=True))
+    qn = rnd(eq / (eq @ mask) * (dim_head ** -0.5))
+    ek = torch.exp(k - torch.amax(k, dim=1, keepdim=True))   # softmax over n
+    kn = rnd(ek / torch.sum(ek, dim=1, keepdim=True))
+    ctx = rnd((kn.transpose(1, 2) @ v) * mask)
+    return qn @ ctx
+
+
 def linattn_block_plain(x, g1, wq, wk, wv, wout, bout, g2, *, dim_head: int):
     """Plain PyTorch version of the same block; mirrors ``_xla_linattn_block``.
 
@@ -52,7 +70,6 @@ def linattn_block_plain(x, g1, wq, wk, wv, wout, bout, g2, *, dim_head: int):
     accumulate in float32, which is what ``preferred_element_type=float32``
     gives in JAX."""
     b, n, c = x.shape
-    hidden = wq.shape[1]
     cd = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
 
     def rnd(t):
@@ -64,20 +81,9 @@ def linattn_block_plain(x, g1, wq, wk, wv, wout, bout, g2, *, dim_head: int):
         return tf / torch.clamp_min(norm, 1e-12) * (g.float() * math.sqrt(c))
 
     y = rnd(rms(x, g1))
-    q = y @ rnd(wq)
-    k = y @ rnd(wk)
-    v = rnd(y @ rnd(wv))
-
-    mask = _head_mask(hidden, dim_head, x.device)
-    eq = torch.exp(q - torch.amax(q, dim=-1, keepdim=True))
-    denom = eq @ mask
-    qn = rnd(eq / denom * (dim_head ** -0.5))
-
-    ek = torch.exp(k - torch.amax(k, dim=1, keepdim=True))   # softmax over n
-    kn = rnd(ek / torch.sum(ek, dim=1, keepdim=True))
-
-    ctx = rnd((kn.transpose(1, 2) @ v) * mask)
-    out = rnd(qn @ ctx) @ rnd(wout) + bout.float()
+    attn = linattn_core_plain(y @ rnd(wq), y @ rnd(wk), rnd(y @ rnd(wv)),
+                              dim_head, cd)
+    out = rnd(attn) @ rnd(wout) + bout.float()
     return rms(out, g2).to(x.dtype)
 
 

@@ -17,10 +17,16 @@ for free, the JAX package reproduces them by hand in NHWC):
   the reference's Rearrange 'b c (h p1) (w p2) -> b (c p1 p2) h w'
 - multi-head qkv: heads packed head-major in the channel dim, h*dim_head + d
 
-The attention blocks run the whole block through the fused kernels
-(``srgd_tpu_torch.kernels``) in every precision: on a CUDA tensor the CUDA
-kernel, on a CPU tensor its plain version. An NCHW ``channels_last`` tensor
-viewed as (b, h*w, c) is the kernels' input with no copy.
+By default the attention blocks run the whole block through the fused
+kernels (``srgd_tpu_torch.kernels``) in every precision: on a CUDA tensor the
+CUDA kernel, on a CPU tensor its plain version. An NCHW ``channels_last``
+tensor viewed as (b, h*w, c) is the kernels' input with no copy.
+
+``use_pallas`` (the JAX modules' name for the flag, kept) selects the other
+kernel set, as ``srgd_tpu/nn/layers.py`` routes it: ``Block`` norms through
+``groupnorm_silu``, ``LinearAttention`` runs RMSNorm -> to_qkv ->
+``linear_attention_qkv`` -> to_out -> RMSNorm, and ``Attention`` runs
+RMSNorm -> to_qkv -> ``attention`` -> to_out.
 """
 
 from __future__ import annotations
@@ -31,8 +37,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from srgd_tpu_torch.kernels.attention import attention
 from srgd_tpu_torch.kernels.attn_block import attn_block
+from srgd_tpu_torch.kernels.groupnorm_silu import groupnorm_silu
 from srgd_tpu_torch.kernels.linattn_block import linattn_block
+from srgd_tpu_torch.kernels.linear_attention import linear_attention_qkv
 
 
 class Conv2d(nn.Conv2d):
@@ -140,18 +149,33 @@ class ClassMLP(nn.Sequential):
 
 class Block(nn.Module):
     """conv3x3 -> GroupNorm(8) -> optional FiLM x*(scale+1)+shift -> SiLU.
-    Norm, FiLM and SiLU in float32; output in ``dtype``."""
+    Norm, FiLM and SiLU in float32; output in ``dtype``. With ``use_pallas``
+    everything after the conv is one ``groupnorm_silu`` call on the conv's
+    output in ``dtype``, with no float32 copy of the activation."""
 
     def __init__(self, dim: int, dim_out: int, groups: int = 8,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, use_pallas: bool = False):
         super().__init__()
         self.proj = Conv2d(dim, dim_out, 3, padding=1, dtype=dtype,
                            device=device)
         self.norm = nn.GroupNorm(groups, dim_out, eps=1e-5, device=device)
         self.dtype = dtype
+        self.use_pallas = use_pallas
 
     def forward(self, x, scale_shift=None):
         x = self.proj(x)
+        if self.use_pallas:
+            film = None
+            if scale_shift is not None:
+                scale, shift = scale_shift
+                film = torch.stack([scale[:, :, 0, 0], shift[:, :, 0, 0]],
+                                   dim=1)
+            # the NHWC view of the conv's channels_last output: no copy
+            out = groupnorm_silu(x.permute(0, 2, 3, 1), self.norm.weight,
+                                 self.norm.bias, film,
+                                 groups=self.norm.num_groups,
+                                 eps=self.norm.eps)
+            return out.permute(0, 3, 1, 2).to(self.dtype)
         x = group_norm(x, self.norm.weight, self.norm.bias,
                        self.norm.num_groups, self.norm.eps)
         if scale_shift is not None:
@@ -165,13 +189,15 @@ class ResnetBlock(nn.Module):
     (key ``mlp.1``) in float32; scale first, then shift."""
 
     def __init__(self, dim: int, dim_out: int, time_emb_dim: int | None = None,
-                 groups: int = 8, dtype=torch.float32, device=None):
+                 groups: int = 8, dtype=torch.float32, device=None,
+                 use_pallas: bool = False):
         super().__init__()
         self.mlp = (nn.Sequential(nn.SiLU(), nn.Linear(time_emb_dim, dim_out * 2,
                                                        device=device))
                     if time_emb_dim is not None else None)
-        self.block1 = Block(dim, dim_out, groups, dtype, device)
-        self.block2 = Block(dim_out, dim_out, groups, dtype, device)
+        self.block1 = Block(dim, dim_out, groups, dtype, device, use_pallas)
+        self.block2 = Block(dim_out, dim_out, groups, dtype, device,
+                            use_pallas)
         self.res_conv = (Conv2d(dim, dim_out, 1, dtype=dtype, device=device)
                          if dim != dim_out else None)
 
@@ -204,14 +230,18 @@ def _from_rows(y, h: int, w: int):
 class LinearAttention(nn.Module):
     """Linear attention: q softmax over each head's channels, k softmax over
     the sequence, RMSNorm in and out. The whole block is one call of
-    ``linattn_block``."""
+    ``linattn_block``; with ``use_pallas`` it is RMSNorm -> to_qkv ->
+    ``linear_attention_qkv`` on the packed projection -> to_out -> RMSNorm,
+    at any n: the kernel masks a ragged tail, so the JAX module's
+    n % 256 gate (its kernel's block size) has no counterpart here."""
 
     def __init__(self, dim: int, heads: int = 4, dim_head: int = 32,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, use_pallas: bool = False):
         super().__init__()
         hidden = heads * dim_head
         self.dim_head = dim_head
         self.dtype = dtype
+        self.use_pallas = use_pallas
         self.norm = RMSNorm(dim, dtype, device)
         self.to_qkv = Conv2d(dim, hidden * 3, 1, bias=False, dtype=dtype,
                              device=device)
@@ -221,6 +251,8 @@ class LinearAttention(nn.Module):
 
     def forward(self, x):
         b, c, h, w = x.shape
+        if self.use_pallas:
+            return self._unfused(x)
         wq, wk, wv = self.to_qkv.weight[:, :, 0, 0].t().chunk(3, dim=1)
         out = linattn_block(
             _as_rows(x.to(self.dtype)), self.norm.g.reshape(c), wq, wk, wv,
@@ -228,15 +260,28 @@ class LinearAttention(nn.Module):
             self.to_out[1].g.reshape(c), dim_head=self.dim_head)
         return _from_rows(out, h, w)
 
+    def _unfused(self, x):
+        h, w = x.shape[2:]
+        qkv = _as_rows(self.to_qkv(self.norm(x)))       # (b, n, 3*hidden)
+        out = linear_attention_qkv(qkv, dim_head=self.dim_head)
+        return self.to_out(_from_rows(out.to(self.dtype), h, w))
+
 
 class Attention(nn.Module):
     """Full softmax attention over the flattened grid (scale dim_head^-0.5,
-    softmax in float32). The whole block is one call of ``attn_block``."""
+    softmax in float32). The whole block is one call of ``attn_block``.
+
+    ``use_pallas`` routes as the JAX module does: in bfloat16 with ``fused``
+    (and n <= 2048, n % 8 == 0, hidden % 128 == 0) the whole-block kernel
+    keeps the block; otherwise the block is RMSNorm -> to_qkv -> ``attention``
+    on the (b, heads, n, d) views of the projection -> to_out."""
 
     def __init__(self, dim: int, heads: int = 4, dim_head: int = 32,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, use_pallas: bool = False,
+                 fused: bool = True):
         super().__init__()
         self.heads, self.dim_head, self.dtype = heads, dim_head, dtype
+        self.use_pallas, self.fused = use_pallas, fused
         self.norm = RMSNorm(dim, dtype, device)
         self.to_qkv = Conv2d(dim, heads * dim_head * 3, 1, bias=False,
                              dtype=dtype, device=device)
@@ -245,12 +290,27 @@ class Attention(nn.Module):
 
     def forward(self, x):
         b, c, h, w = x.shape
+        n, hidden = h * w, self.heads * self.dim_head
+        fused_ok = (self.fused and self.dtype == torch.bfloat16 and n <= 2048
+                    and n % 8 == 0 and hidden % 128 == 0)
+        if self.use_pallas and not fused_ok:
+            return self._unfused(x)
         out = attn_block(
             _as_rows(x.to(self.dtype)), self.norm.g.reshape(c),
             self.to_qkv.weight[:, :, 0, 0].t(),
             self.to_out.weight[:, :, 0, 0].t(), self.to_out.bias,
             heads=self.heads, dim_head=self.dim_head)
         return _from_rows(out, h, w)
+
+    def _unfused(self, x):
+        b, _, h, w = x.shape
+        n = h * w
+        qkv = _as_rows(self.to_qkv(self.norm(x))).reshape(
+            b, n, 3, self.heads, self.dim_head)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        out = attention(q, k, v)                        # (b, heads, n, d)
+        out = out.transpose(1, 2).reshape(b, n, self.heads * self.dim_head)
+        return self.to_out(_from_rows(out.to(self.dtype), h, w))
 
 
 # ---------------------------------------------------------------------------

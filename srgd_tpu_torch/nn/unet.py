@@ -35,7 +35,15 @@ class SRUnet(nn.Module):
     Input channels = 2 * channels (noisy image concat condition image); H and
     W must be divisible by 2 ** (len(dim_mults) - 1). ``dtype`` is the
     compute dtype; parameters are float32. Build on ``device='meta'`` to
-    count parameters without allocating them."""
+    count parameters without allocating them.
+
+    The kernel flags carry the JAX net's names. ``use_pallas``: every
+    ``Block`` norms through ``groupnorm_silu`` and every ``LinearAttention``
+    runs ``linear_attention_qkv``. ``use_pallas_attention``: the full
+    attention blocks run ``attention`` wherever the whole-block kernel does
+    not keep them, which ``fused_linattn=False`` makes everywhere. With all
+    three at their defaults the attention blocks are ``linattn_block`` and
+    ``attn_block``."""
 
     def __init__(self, dim: int, dim_mults: Sequence[int] = (1, 2, 4, 8),
                  channels: int = 3, resnet_block_groups: int = 8,
@@ -46,7 +54,9 @@ class SRUnet(nn.Module):
                  full_attn: Sequence[bool] = (False, False, False, True),
                  pixel_shuffle_upsample: bool = True,
                  num_classes: int | None = None, dtype=torch.float32,
-                 device=None):
+                 device=None, use_pallas: bool = False,
+                 use_pallas_attention: bool = False,
+                 fused_linattn: bool = True):
         super().__init__()
         self.dim, self.dim_mults, self.channels = dim, tuple(dim_mults), channels
         self.num_classes, self.dtype = num_classes, dtype
@@ -59,11 +69,16 @@ class SRUnet(nn.Module):
 
         def block(d_in, d_out):
             return ResnetBlock(d_in, d_out, time_emb_dim=time_dim,
-                               groups=resnet_block_groups, **kw)
+                               groups=resnet_block_groups,
+                               use_pallas=use_pallas, **kw)
 
         def attn(d, is_full):
-            cls = Attention if is_full else LinearAttention
-            return cls(d, heads=attn_heads, dim_head=attn_dim_head, **kw)
+            if is_full:
+                return Attention(d, heads=attn_heads, dim_head=attn_dim_head,
+                                 use_pallas=use_pallas_attention,
+                                 fused=fused_linattn, **kw)
+            return LinearAttention(d, heads=attn_heads, dim_head=attn_dim_head,
+                                   use_pallas=use_pallas, **kw)
 
         self.init_conv = Conv2d(channels * 2, dim, 7, padding=3, **kw)
         self.time_mlp = TimeMLP(dim, time_dim, learned_sinusoidal_cond,
@@ -176,12 +191,9 @@ class SRUnet(nn.Module):
 
 def build_unet_from_config(conf, dtype=None, device=None) -> SRUnet:
     """``Config`` -> ``SRUnet``, as the JAX factory builds it. Options the port
-    does not carry raise (ROADMAP Queue 1 items 9, 14 and 12; Queue 2 items
-    3-5)."""
+    does not carry raise (ROADMAP Queue 1 items 9, 14 and 12)."""
     unsupported = {
         'quantize': conf.quantize != 'none',
-        'use_pallas_kernels': conf.use_pallas_kernels,
-        'flash_attn': conf.flash_attn,
         'remat_unet': conf.remat_unet,
         'deep_cache_interval': conf.deep_cache_interval > 1,
     }
@@ -200,4 +212,6 @@ def build_unet_from_config(conf, dtype=None, device=None) -> SRUnet:
         learned_sinusoidal_dim=conf.learned_sinusoidal_dim,
         pixel_shuffle_upsample=conf.pixel_shuffle_upsample,
         num_classes=conf.num_classes if 'conditional' in conf.model else None,
-        dtype=dtype, device=device)
+        dtype=dtype, device=device, use_pallas=conf.use_pallas_kernels,
+        use_pallas_attention=conf.flash_attn,
+        fused_linattn=conf.fused_linattn)

@@ -19,6 +19,8 @@ from srgd_tpu_torch.checkpoint import (load_reference_checkpoint,
 from srgd_tpu_torch.nn.unet import SRUnet
 from tests.torch_ref import make_state_dict
 
+torch.set_num_threads(1)   # tiny sizes; the suite runs many workers at once
+
 FLAGSHIP = dict(dim_mults=(1, 2, 4, 8), full_attn=(False, False, False, True),
                 learned_sinusoidal_cond=True, learned_sinusoidal_dim=32,
                 num_classes=3)

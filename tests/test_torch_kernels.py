@@ -1,11 +1,11 @@
-"""The port's fused attention blocks against the JAX package's.
+"""The port's kernels against the JAX package's.
 
 On the CPU each wrapper runs its plain PyTorch version; it is checked against
-the Pallas kernel (interpret mode, as tests/test_kernels.py runs it) and the
-kernel's XLA twin, in float32 (atol 1e-4) and bfloat16 (atol 2e-2, the
-rounding-order budget of one bf16 ulp at the outputs' magnitude). The CUDA
-kernels themselves run only on the card: tests/test_torch_cuda.py and
-chip_smoke.py."""
+the Pallas kernel (interpret mode per call, as tests/test_kernels.py runs it)
+and, for the whole-block kernels, the kernel's XLA twin, in float32 (atol
+1e-4) and bfloat16 (atol 2e-2, the rounding-order budget of one bf16 ulp at
+the outputs' magnitude). The CUDA kernels themselves run only on the card:
+tests/test_torch_cuda.py and chip_smoke.py."""
 
 import numpy as np
 import pytest
@@ -13,11 +13,20 @@ import torch
 
 import jax.numpy as jnp
 
+from srgd_tpu.kernels.attention import fused_attention
 from srgd_tpu.kernels.attn_block import _xla_attn_block, fused_attn_block
+from srgd_tpu.kernels.groupnorm_silu import fused_groupnorm_silu
 from srgd_tpu.kernels.linattn_block import (_xla_linattn_block,
                                             fused_linattn_block)
+from srgd_tpu.kernels.linear_attention import (fused_linear_attention,
+                                               fused_linear_attention_qkv)
+from srgd_tpu_torch.kernels import attention as at
 from srgd_tpu_torch.kernels import attn_block as ab
+from srgd_tpu_torch.kernels import groupnorm_silu as gs
 from srgd_tpu_torch.kernels import linattn_block as lb
+from srgd_tpu_torch.kernels import linear_attention as la
+
+torch.set_num_threads(1)   # tiny sizes; the suite runs many workers at once
 
 SHAPES = [(2, 256, 128), (1, 1024, 128), (2, 256, 256)]
 ATOL = {'float32': 1e-4, 'bfloat16': 2e-2}
@@ -81,8 +90,89 @@ def test_plain_matches_jax_kernel(kind, shape, dtype):
     assert torch.equal(wrapped, plain)
 
 
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('groups', [4, 8])
+@pytest.mark.parametrize('film', [False, True], ids=['plain', 'film'])
+def test_groupnorm_silu_matches_jax_kernel(film, groups, dtype):
+    """float32 atol 2e-5, the bar of tests/test_kernels.py; bfloat16 within
+    one output ulp (2e-2 at outputs of a few units)."""
+    rng = np.random.default_rng(2)
+    b, hw, c = 2, 16, 32
+    x = (rng.normal(size=(b, hw, hw, c)) * 1.5 + 0.3).astype(np.float32)
+    gamma = (1 + 0.1 * rng.normal(size=c)).astype(np.float32)
+    beta = (0.1 * rng.normal(size=c)).astype(np.float32)
+    fm = (rng.normal(size=(b, 2, c)) * 0.2).astype(np.float32) if film else None
+    want = fused_groupnorm_silu(
+        _jax(x, dtype), jnp.asarray(gamma), jnp.asarray(beta),
+        None if fm is None else jnp.asarray(fm), groups=groups, interpret=True)
+    args = (_torch(x, dtype), torch.from_numpy(gamma), torch.from_numpy(beta),
+            None if fm is None else torch.from_numpy(fm))
+    plain = gs.groupnorm_silu_plain(*args, groups=groups)
+    assert plain.dtype == TDT[dtype] and plain.shape == x.shape
+    np.testing.assert_allclose(plain.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=2e-5 if dtype == 'float32' else 2e-2,
+                               rtol=0)
+    assert torch.equal(gs.groupnorm_silu(*args, groups=groups), plain)
+    # (b, rows, c) is the same function
+    flat = gs.groupnorm_silu(args[0].reshape(b, hw * hw, c), *args[1:],
+                             groups=groups)
+    assert torch.equal(flat.reshape(x.shape), plain)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_attention_matches_jax_kernel(dtype):
+    rng = np.random.default_rng(0)
+    q, k, v = (rng.normal(size=(2, 4, 256, 32)).astype(np.float32)
+               for _ in range(3))
+    want = fused_attention(_jax(q, dtype), _jax(k, dtype), _jax(v, dtype),
+                           interpret=True)
+    ta = [_torch(a, dtype) for a in (q, k, v)]
+    plain = at.attention_plain(*ta)
+    assert plain.dtype == TDT[dtype] and plain.shape == q.shape
+    tol = dict(atol=2e-5, rtol=1e-4) if dtype == 'float32' else dict(
+        atol=0.02, rtol=0)
+    np.testing.assert_allclose(plain.float().numpy(),
+                               np.asarray(want, np.float32), **tol)
+    assert torch.equal(at.attention(*ta), plain)
+    # the transposed views of one (b, n, 3, heads, d) projection
+    qkv = torch.stack([t.transpose(1, 2) for t in ta], dim=2)
+    views = [qkv[:, :, i].transpose(1, 2) for i in range(3)]
+    assert not views[0].is_contiguous()
+    assert torch.equal(at.attention(*views), plain)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('n', [256, 512])
+@pytest.mark.parametrize('packed', [False, True], ids=['qkv3', 'packed'])
+def test_linear_attention_matches_jax_kernel(packed, n, dtype):
+    """float32 atol 1e-4; bfloat16 within 2e-2 * max|ref|."""
+    rng = np.random.default_rng(3)
+    qkv = rng.normal(size=(2, n, 384)).astype(np.float32)
+    qkv[..., 128:256] *= 2.0     # a k column max that moves between blocks
+    if packed:
+        want = fused_linear_attention_qkv(_jax(qkv, dtype), dim_head=32,
+                                          interpret=True)
+        args = (_torch(qkv, dtype),)
+        plain_fn, fn = la.linear_attention_qkv_plain, la.linear_attention_qkv
+    else:
+        parts = [np.ascontiguousarray(qkv[..., i * 128:(i + 1) * 128])
+                 for i in range(3)]
+        want = fused_linear_attention(*(_jax(a, dtype) for a in parts),
+                                      dim_head=32, interpret=True)
+        args = tuple(_torch(a, dtype) for a in parts)
+        plain_fn, fn = la.linear_attention_plain, la.linear_attention
+    plain = plain_fn(*args, dim_head=32)
+    assert plain.dtype == TDT[dtype] and plain.shape == (2, n, 128)
+    want = np.asarray(want, np.float32)
+    atol = 1e-4 if dtype == 'float32' else 2e-2 * np.abs(want).max()
+    np.testing.assert_allclose(plain.float().numpy(), want, atol=atol, rtol=0)
+    assert torch.equal(fn(*args, dim_head=32), plain)
+
+
 def test_wrappers_route_by_device():
-    before = (lb.launches, ab.launches)
+    before = (lb.launches, ab.launches, gs.launches, at.launches, la.launches,
+              la.launches_qkv)
     arrays, f32_idx = _inputs('linattn', 1, 64, 128)
     meta = [torch.from_numpy(a).to('meta') for a in arrays]
     with pytest.raises(RuntimeError, match='no kernel for device meta'):
@@ -91,7 +181,24 @@ def test_wrappers_route_by_device():
     meta = [torch.from_numpy(a).to('meta') for a in arrays]
     with pytest.raises(RuntimeError, match='no kernel for device meta'):
         ab.attn_block(*meta)
-    assert (lb.launches, ab.launches) == before
+    m = torch.zeros(1, 64, 128, device='meta')
+    ones = torch.ones(128, device='meta')
+    with pytest.raises(RuntimeError, match='no kernel for device meta'):
+        gs.groupnorm_silu(m, ones, ones)
+    with pytest.raises(RuntimeError, match='no kernel for device meta'):
+        at.attention(*[torch.zeros(1, 4, 64, 32, device='meta')] * 3)
+    with pytest.raises(RuntimeError, match='no kernel for device meta'):
+        la.linear_attention(m, m, m)
+    with pytest.raises(RuntimeError, match='no kernel for device meta'):
+        la.linear_attention_qkv(torch.zeros(1, 64, 384, device='meta'))
+    assert (lb.launches, ab.launches, gs.launches, at.launches, la.launches,
+            la.launches_qkv) == before
+
+
+def test_groupnorm_chunks_cover_every_row():
+    for b, rows in ((8, 65536), (16, 1024), (1, 1000), (2, 63), (3, 65)):
+        per, nchunk = gs._chunks(b, rows)
+        assert (nchunk - 1) * per < rows <= nchunk * per
 
 
 def test_linattn_split_covers_every_row():

@@ -5,6 +5,8 @@ The weights of a small JAX U-Net cross into the port through
 in both (NHWC in JAX, the same memory as NCHW channels_last in the port) and
 must agree to atol 1e-4."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +19,8 @@ from srgd_tpu.nn.unet import SRUnet as JaxUnet
 from srgd_tpu_torch.checkpoint import state_dict_from_jax
 from srgd_tpu_torch.nn import layers as tl
 from srgd_tpu_torch.nn.unet import SRUnet
+
+torch.set_num_threads(1)   # tiny sizes; the suite runs many workers at once
 
 ATOL = 1e-4
 DIM, MULTS, FULL = 16, (1, 2), (False, True)
@@ -130,6 +134,126 @@ def test_layer_matches_flax(nets, name):
     want = np.asarray(want)
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+@pytest.fixture
+def interpret_kernels(monkeypatch):
+    """The JAX modules import their Pallas kernels at call time; run them in
+    interpret mode per call (far faster than force_tpu_interpret_mode)."""
+    from srgd_tpu.kernels import attention, groupnorm_silu, linear_attention
+    for mod, name in ((attention, 'fused_attention'),
+                      (groupnorm_silu, 'fused_groupnorm_silu'),
+                      (linear_attention, 'fused_linear_attention_qkv')):
+        monkeypatch.setattr(mod, name, functools.partial(getattr(mod, name),
+                                                         interpret=True))
+
+
+# name -> (flax module, params path, port module getter, (h, w), FiLM?)
+FLAG_CASES = {
+    'block': (lambda: jl.Block(DIM, use_pallas=True),
+              ('downs_0_0', 'block2'), lambda n: n.downs[0][0].block2,
+              (8, 8), False),
+    'block_film': (lambda: jl.Block(DIM, use_pallas=True),
+                   ('downs_0_0', 'block1'), lambda n: n.downs[0][0].block1,
+                   (8, 8), True),
+    # n = 256 reaches the JAX kernel; at n = 64 the JAX module takes its
+    # plain core, while the port keeps one route at every n
+    'linear_attention_n256': (
+        lambda: jl.LinearAttention(DIM, use_pallas=True), ('downs_0_2',),
+        lambda n: n.downs[0][2], (16, 16), False),
+    'linear_attention_n64': (
+        lambda: jl.LinearAttention(DIM, use_pallas=True), ('downs_0_2',),
+        lambda n: n.downs[0][2], (8, 8), False),
+    'attention': (lambda: jl.Attention(DIM, use_pallas=True, fused=False),
+                  ('downs_1_2',), lambda n: n.downs[1][2], (16, 16), False),
+}
+
+
+@pytest.fixture(scope='module')
+def flag_net(nets):
+    params, net = nets[True]
+    flagged = SRUnet(dim=DIM, dim_mults=MULTS, full_attn=FULL,
+                     learned_sinusoidal_cond=True, learned_sinusoidal_dim=8,
+                     num_classes=3, use_pallas=True, use_pallas_attention=True,
+                     fused_linattn=False)
+    flagged.load_state_dict(net.state_dict(), strict=True)
+    return params, flagged
+
+
+@pytest.mark.parametrize('name', sorted(FLAG_CASES))
+def test_flagged_layer_matches_flax(flag_net, interpret_kernels, name):
+    """The kernel flags on in both: the port's plain versions against the
+    flax modules' Pallas kernels."""
+    make_flax, path, get_port, (h, w), film = FLAG_CASES[name]
+    params, net = flag_net
+    p = params
+    for k in path:
+        p = p[k]
+    tmod = get_port(net)
+    assert tmod.use_pallas
+    x = np.random.default_rng(5).normal(size=(2, h, w, DIM)).astype(np.float32)
+    kw, tkw = {}, {}
+    if film:
+        rng = np.random.default_rng(3)
+        s, sh = (rng.normal(size=(2, 1, 1, DIM)).astype(np.float32) * 0.3
+                 for _ in range(2))
+        kw = dict(scale_shift=(jnp.asarray(s), jnp.asarray(sh)))
+        tkw = dict(scale_shift=(_nchw(s), _nchw(sh)))
+    want = np.asarray(make_flax().apply({'params': p}, jnp.asarray(x), **kw))
+    out = tmod(_nchw(x), **tkw)
+    assert out.is_contiguous(memory_format=torch.channels_last)
+    got = _nhwc(out)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+def test_attention_routing_follows_the_flags(monkeypatch):
+    """bfloat16 with ``fused`` keeps the whole-block kernel even under
+    ``use_pallas``; float32, or ``fused=False``, goes to ``attention``; the
+    default net routes as before."""
+    from srgd_tpu_torch.kernels import attention as at
+
+    calls = []
+
+    def spy(*a):
+        calls.append(1)
+        return at.attention_plain(*a)
+
+    monkeypatch.setattr(tl, 'attention', spy)
+    x = _nchw(_img(128, hw=8))          # hidden = 128, n = 64
+    for dtype, use_pallas, fused, expect in (
+            (torch.bfloat16, True, True, 0), (torch.bfloat16, True, False, 1),
+            (torch.float32, True, True, 1), (torch.float32, False, True, 0),
+            (torch.float32, False, False, 0)):
+        mod = tl.Attention(128, dtype=dtype, use_pallas=use_pallas,
+                           fused=fused)
+        calls.clear()
+        with torch.no_grad():
+            out = mod(x)
+        assert len(calls) == expect, (dtype, use_pallas, fused)
+        assert out.dtype == dtype and out.shape == x.shape
+
+
+@pytest.mark.parametrize('hw', [16, 8, 5])
+def test_flagged_linear_attention_has_one_route(monkeypatch, hw):
+    """With ``use_pallas`` the core is ``linear_attention_qkv`` at every n,
+    also where n is no multiple of 256: the module never takes plain tensor
+    code of its own, so on the card it launches the kernel or raises."""
+    from srgd_tpu_torch.kernels import linear_attention as la
+
+    calls = []
+
+    def spy(qkv, **kw):
+        calls.append(tuple(qkv.shape))
+        return la.linear_attention_qkv_plain(qkv, **kw)
+
+    monkeypatch.setattr(tl, 'linear_attention_qkv', spy)
+    mod = tl.LinearAttention(DIM, use_pallas=True)
+    x = _nchw(_img(DIM, hw=hw))
+    with torch.no_grad():
+        out = mod(x)
+    assert calls == [(x.shape[0], hw * hw, 3 * 128)]
+    assert out.shape == x.shape
 
 
 def test_sinusoidal_pos_emb_matches_flax():

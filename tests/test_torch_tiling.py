@@ -19,6 +19,8 @@ from srgd_tpu_torch import tiling as tt
 from srgd_tpu_torch.diffusion import base as tb
 from srgd_tpu_torch.diffusion.schedules import make_log_snr_table
 
+torch.set_num_threads(1)   # tiny sizes; the suite runs many workers at once
+
 # (height, width, tile_size, tile_stride)
 GEOMETRIES = [(40, 40, 32, None), (64, 64, 32, None), (20, 30, 32, None),
               (70, 50, 32, 24), (96, 96, 32, 20), (512, 512, 256, None)]

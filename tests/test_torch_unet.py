@@ -6,6 +6,8 @@ with ``strict=True`` and into the JAX net through the converter; both nets
 run the same numpy inputs and agree to atol 1e-4 at float32. Plus the two
 CFG nulls and one loose bf16 check."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -18,7 +20,10 @@ from srgd_tpu.nn.unet import SRUnet as JaxUnet
 from srgd_tpu_torch.nn.unet import SRUnet
 from tests.torch_ref import make_state_dict
 
+torch.set_num_threads(1)   # tiny sizes; the suite runs many workers at once
+
 ATOL = 1e-4
+FLAGS = dict(use_pallas=True, use_pallas_attention=True, fused_linattn=False)
 
 CONFIGS = {
     '2stage': dict(),
@@ -33,7 +38,8 @@ CONFIGS = {
 
 
 def _pair(dim=16, dim_mults=(1, 2), full_attn=(False, True), num_classes=None,
-          learned_sinusoidal=True, pixel_shuffle=True, seed=0, dtype=None):
+          learned_sinusoidal=True, pixel_shuffle=True, seed=0, dtype=None,
+          **flags):
     sd = make_state_dict(dim=dim, dim_mults=dim_mults, full_attn=full_attn,
                          num_classes=num_classes,
                          learned_sinusoidal=learned_sinusoidal,
@@ -46,9 +52,9 @@ def _pair(dim=16, dim_mults=(1, 2), full_attn=(False, True), num_classes=None,
               learned_sinusoidal_cond=learned_sinusoidal,
               learned_sinusoidal_dim=8, pixel_shuffle_upsample=pixel_shuffle,
               num_classes=num_classes)
-    net = SRUnet(**kw, dtype=dtype or torch.float32)
+    net = SRUnet(**kw, **flags, dtype=dtype or torch.float32)
     net.load_state_dict(sd, strict=True)
-    return JaxUnet(**kw), params, net
+    return JaxUnet(**kw, **flags), params, net
 
 
 def _forward(net, x, t, cond=None, label=None, mask=None):
@@ -81,6 +87,85 @@ def test_unet_matches_jax(name):
     got = _forward(net, x, t, cond, label)
     assert got.shape == want.shape
     np.testing.assert_allclose(got, np.asarray(want), atol=ATOL, rtol=0)
+
+
+@pytest.fixture
+def interpret_kernels(monkeypatch):
+    """The JAX modules import their Pallas kernels at call time; run them in
+    interpret mode per call (far faster than force_tpu_interpret_mode)."""
+    from srgd_tpu.kernels import attention, groupnorm_silu, linear_attention
+    for mod, name in ((attention, 'fused_attention'),
+                      (groupnorm_silu, 'fused_groupnorm_silu'),
+                      (linear_attention, 'fused_linear_attention_qkv')):
+        monkeypatch.setattr(mod, name, functools.partial(getattr(mod, name),
+                                                         interpret=True))
+
+
+@pytest.fixture(scope='module')
+def flagged_pair():
+    return _pair(num_classes=3, seed=9, **FLAGS)
+
+
+@pytest.mark.parametrize('size', [16, 24], ids=['n256', 'n576'])
+def test_flagged_unet_matches_jax(flagged_pair, interpret_kernels, size):
+    """The slice as a whole: use_pallas, use_pallas_attention and
+    fused_linattn=False in both nets, class-conditional. At 16 px the linear
+    attention has n = 256 and reaches linear_attention_qkv; at 24 px n = 576
+    takes the plain core in both."""
+    jnet, params, net = flagged_pair
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(2, size, size, 3)).astype(np.float32)
+    cond = rng.normal(size=(2, size, size, 3)).astype(np.float32)
+    t = rng.normal(size=(2,)).astype(np.float32)
+    label = np.asarray([2, 0])
+    want = jnet.apply({'params': params}, jnp.asarray(x), jnp.asarray(t),
+                      cond=jnp.asarray(cond), class_label=jnp.asarray(label))
+    got = _forward(net, x, t, cond, label)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, np.asarray(want), atol=ATOL, rtol=0)
+
+
+def test_flags_on_match_flags_off(flagged_pair):
+    """Inside the port the second kernel set computes the default path's
+    function: atol 5e-5 at float32, the bar tests/test_kernels.py sets for the
+    JAX net's flag."""
+    _, _, flagged = flagged_pair
+    _, _, plain = _pair(num_classes=3, seed=9)
+    rng = np.random.default_rng(10)
+    x = rng.normal(size=(2, 16, 16, 3)).astype(np.float32)
+    cond = rng.normal(size=(2, 16, 16, 3)).astype(np.float32)
+    t = rng.normal(size=(2,)).astype(np.float32)
+    label = np.asarray([1, 2])
+    a = _forward(plain, x, t, cond, label)
+    b = _forward(flagged, x, t, cond, label)
+    np.testing.assert_allclose(b, a, atol=5e-5, rtol=0)
+    assert np.abs(a).max() > 1e-2
+
+
+def test_build_from_config_maps_the_kernel_flags():
+    from srgd_tpu_torch.config import Config
+    from srgd_tpu_torch.nn.layers import Attention, Block, LinearAttention
+    from srgd_tpu_torch.nn.unet import build_unet_from_config
+    conf = Config(model='conditional_continuous', unet_dim=8,
+                  ddpm_unet_dim_mults='1,2', full_attn='False,True',
+                  use_pallas_kernels=True, flash_attn=True,
+                  fused_linattn=False)
+    net = build_unet_from_config(conf, device='meta')
+    mods = list(net.modules())
+    for cls, flag in ((Block, True), (LinearAttention, True),
+                      (Attention, True)):
+        picked = [m for m in mods if isinstance(m, cls)]
+        assert picked and all(m.use_pallas is flag for m in picked)
+    assert all(not m.fused for m in mods if isinstance(m, Attention))
+    default = build_unet_from_config(
+        Config(model='conditional_continuous', unet_dim=8,
+               ddpm_unet_dim_mults='1,2', full_attn='False,True'),
+        device='meta')
+    assert not any(getattr(m, 'use_pallas', False) for m in default.modules())
+    for bad in (dict(quantize='w8a8'), dict(remat_unet=True),
+                dict(deep_cache_interval=2)):
+        with pytest.raises(NotImplementedError, match='ROADMAP'):
+            build_unet_from_config(Config(**bad), device='meta')
 
 
 def test_class_mask_null_matches_jax_and_equals_no_label():
