@@ -11,7 +11,9 @@ Phases, each printed as one JSON line:
 3. kernels: each of the six kernels against its plain PyTorch version at every
    flagship shape (b = 8; ``groupnorm_silu`` with and without FiLM; every
    kernel's largest shape also at b = 16, the batch class CFG gives) in
-   bfloat16 and float32, with max-abs error, the
+   bfloat16 and float32 (``attention`` and ``linattn_block`` also at ragged
+   n, where their 64-row tiles end in a masked tail), with max-abs and rms
+   error, the
    CUDA-event times of both (the 50 MB L2 is flushed before every timed call)
    and the bound: the least time the card could take, the larger of the
    function's bytes (inputs read once, outputs written once) over the memory
@@ -41,7 +43,10 @@ Phases, each printed as one JSON line:
    step of a 512-px LR input (2304 canvas), for the default net and for the
    ``use_pallas`` net.
 7. profile, only with ``--profile``: ``torch.profiler`` over three forwards of
-   each net, device time per kernel name.
+   each net, device time per kernel name, per kernel of the port (summed
+   over all its launches and shapes) and per group of PyTorch's own kernels,
+   and the device time of single calls of
+   ``linattn_block`` and ``attention`` beside SDPA's.
 
 Every launch count is set to 0 just before a path is driven and read just
 after. Then the kernel summary and, last, the device line. Exits non-zero,
@@ -69,6 +74,11 @@ GN_SHAPES = ((65536, 128), (16384, 128), (16384, 256), (4096, 256),
              (4096, 512), (1024, 512), (1024, 1024))
 LINEAR_SHAPES = (65536, 16384, 4096)
 FLASH_SHAPES = (1024,)
+# ragged cases at full width for the kernels whose tiles are 64 rows: n of
+# `attention` and (n, c) of `linattn_block`, no multiples of a tile
+RAGGED_FLASH_SHAPES = (1000, 24)
+RAGGED_LINATTN_SHAPES = ((4096 + 40, 256),)
+FLUSH_WRITES = 16   # see time_ms
 BF16_RTOL = 2e-2    # max|kernel - plain| <= 2e-2 * max|plain|
 F32_ATOL = 1e-4     # max|kernel - plain| <= 1e-4 * max(1, max|plain|)
 # max|y - y_default| / max|y_default| of one forward of the two bf16 nets, and
@@ -156,7 +166,11 @@ def time_ms(torch, fn, device, iters: int, flush=None) -> float:
     events = []
     for _ in range(iters):
         if flush is not None:
-            flush.zero_()
+            # rewritten FLUSH_WRITES times: the card is still busy with them
+            # when the host has enqueued the call, so the timed window holds
+            # the call's device time and not the host's launch latency
+            for _ in range(FLUSH_WRITES):
+                flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -301,23 +315,29 @@ def _largest(shapes):
 def phase_kernels(torch, device, *, b=8, lin_shapes=LINATTN_SHAPES,
                   attn_shapes=ATTN_SHAPES, gn_shapes=GN_SHAPES,
                   linear_shapes=LINEAR_SHAPES, flash_shapes=FLASH_SHAPES,
-                  iters=5, seed=0):
+                  ragged_lin_shapes=RAGGED_LINATTN_SHAPES,
+                  ragged_flash_shapes=RAGGED_FLASH_SHAPES, iters=5, seed=0):
     """Each kernel against its plain version at the given shapes, bf16 and f32,
-    at batch b, and at its largest shape also at 2 b, the batch class CFG
-    gives. Inputs come from a seeded generator, weights scaled by
-    1/sqrt(fan-in)."""
+    at batch b, at its largest shape also at 2 b, the batch class CFG
+    gives, and the ragged shapes of the two tensor-core kernels at b. The
+    rms error is reported beside the gated max-abs error. Inputs come from a
+    seeded generator, weights scaled by 1/sqrt(fan-in)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     flush = (torch.empty(64 << 20, dtype=torch.uint8, device=device)
              if device.type == 'cuda' else None)
     shapes = dict(lin_shapes=lin_shapes, attn_shapes=attn_shapes,
                   gn_shapes=gn_shapes, linear_shapes=linear_shapes,
                   flash_shapes=flash_shapes)
-    largest = {k: _largest(v) for k, v in shapes.items()}
+    largest = {k: _largest(v) if v else () for k, v in shapes.items()}
+    ragged = {**dict.fromkeys(shapes, ()), 'lin_shapes': ragged_lin_shapes,
+              'flash_shapes': ragged_flash_shapes}
     todo = itertools.chain(
         zip(itertools.repeat(b),
             kernel_cases(torch, device, b, gen, **shapes)),
         zip(itertools.repeat(2 * b),
-            kernel_cases(torch, device, 2 * b, gen, **largest)))
+            kernel_cases(torch, device, 2 * b, gen, **largest)),
+        zip(itertools.repeat(b),
+            kernel_cases(torch, device, b, gen, **ragged)))
     cases = []
     for batch, (kind, shape, make) in todo:
         for dtype in (torch.bfloat16, torch.float32):
@@ -327,6 +347,7 @@ def phase_kernels(torch, device, *, b=8, lin_shapes=LINATTN_SHAPES,
             if device.type == 'cuda':
                 torch.cuda.synchronize()
             err = (got - want).abs().max().item()
+            rms = (got - want).square().mean().sqrt().item()
             ref_max = want.abs().max().item()
             ok, tol = _within(err, ref_max, dtype, torch)
             ok = ok and bool(torch.isfinite(got).all())
@@ -337,7 +358,7 @@ def phase_kernels(torch, device, *, b=8, lin_shapes=LINATTN_SHAPES,
             library = case.get('library')
             cases.append({
                 'kernel': kind, **shape, 'b': batch, 'dtype': name,
-                'max_abs_err': err, 'tol': tol, 'ok': ok,
+                'max_abs_err': err, 'rms_err': rms, 'tol': tol, 'ok': ok,
                 'ms': time_ms(torch, case['kern'], device, iters, flush),
                 'plain_ms': time_ms(torch, case['plain'], device, iters, flush),
                 'library_ms': (None if library is None else
@@ -637,22 +658,110 @@ def phase_bench(torch, device, *, lr_size=512, tile_size=256, batch_size=8,
     return res
 
 
+# device kernel (function name in the profile) -> the port's kernel
+DEVICE_KERNELS = {
+    'phase_a': 'linattn_block', 'phase_b': 'linattn_block',
+    'phase_a_mma': 'linattn_block', 'phase_b_mma': 'linattn_block',
+    'qkv_proj': 'attn_block', 'attend': 'attn_block',
+    'gn_stats': 'groupnorm_silu', 'gn_fold': 'groupnorm_silu',
+    'gn_apply': 'groupnorm_silu', 'flash': 'attention',
+    'flash_mma': 'attention', 'kv_partials': 'linear_attention_qkv',
+    'out_rows': 'linear_attention_qkv'}
+# the float32 device kernels: a bfloat16 net must spend no time in them
+F32_ONLY_KERNELS = ('phase_a', 'phase_b', 'flash')
+
+
+def _device_rows(torch, run, calls: int, on_card: bool):
+    """(ms per call, launches per call, name) of every device kernel that
+    ``run()`` (``calls`` calls of something) launches, largest first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+    with profile(activities=acts) as prof:
+        run()
+    attr = 'self_device_time_total' if on_card else 'self_cpu_time_total'
+    return sorted(((getattr(e, attr) / 1e3 / calls, e.count / calls, e.key)
+                   for e in prof.key_averages() if getattr(e, attr) > 0
+                   # on the card kernels only, not the operators over them
+                   and (not on_card or e.device_type == DeviceType.CUDA)),
+                  reverse=True)
+
+
+def _by_kernel(rows, merge_owner: str) -> dict:
+    """ms per call of each of the port's kernels, summed over its device
+    kernels by function name; the partial merge that two of them share goes
+    to ``merge_owner``, the one the profiled net routes to."""
+    import re
+    out = {}
+    for ms, calls, key in rows:
+        m = re.search(r'(\w+)(<.*>)?\(', key)
+        fn = m.group(1) if m else key
+        owner = merge_owner if fn == 'merge_kv_partials' else DEVICE_KERNELS.get(fn)
+        if owner is not None:
+            entry = out.setdefault(owner, {'ms': 0.0, 'device_kernels': {}})
+            entry['ms'] += ms
+            entry['device_kernels'][fn] = entry['device_kernels'].get(fn, 0.0) + ms
+    return out
+
+
+# what PyTorch's own device kernels are doing, by the first substring of the
+# kernel's name that matches
+OP_GROUPS = (
+    ('convolutions', ('xmma', 'convolve', 'cudnn', 'conv')),
+    ('gemm', ('nvjet', 'gemm', 'cutlass')),
+    ('groupnorm_moments', ('RowwiseMoments',)),
+    ('concatenations', ('CatArray',)),
+    ('copies_and_casts', ('copy_kernel',)),
+    ('reductions', ('reduce_kernel',)),
+    ('elementwise', ('elementwise',)),
+)
+
+
+def _by_group(rows) -> dict:
+    """ms per call of every device kernel summed by group: the port's own
+    kernels together, then ``OP_GROUPS``, then ``other``."""
+    import re
+    out = {'port_kernels': 0.0, **{g: 0.0 for g, _ in OP_GROUPS}, 'other': 0.0}
+    for ms, _, key in rows:
+        m = re.search(r'(\w+)(<.*>)?\(', key)
+        if m and (m.group(1) in DEVICE_KERNELS
+                  or m.group(1) == 'merge_kv_partials'):
+            group = 'port_kernels'
+        else:
+            group = next((g for g, subs in OP_GROUPS
+                          if any(sub in key for sub in subs)), 'other')
+        out[group] += ms
+    return out
+
+
 def phase_profile(torch, device, *, tile_size=256, batch_size=8, seed=0,
-                  forwards=3, top=24, **net_kw):
+                  forwards=3, top=24, lin_shapes=LINATTN_SHAPES,
+                  flash_shapes=FLASH_SHAPES, **net_kw):
     """``torch.profiler`` over ``forwards`` U-Net forwards of the default and
     of the ``use_pallas`` net (b = 8 tiles of 256 px, bf16): self device time
     per kernel name, in ms per forward, largest first, with the sum over all
-    kernels beside the host-clock time of a forward. Not part of the default
-    run: ``python3 chip_smoke.py --profile`` adds it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    kernels beside the host-clock time of a forward, ``by_kernel``: each of
+    the port's kernels' time per forward summed over all its launches and
+    shapes, and ``by_group``: every device kernel's time by what it does. A
+    bfloat16 net must spend no time in the float32 device kernels.
+    Then ``standalone``: the device time (no host latency, L2 warm) of one
+    call of the two tensor-core kernels at the flagship shapes, ``attention``
+    beside ``F.scaled_dot_product_attention``. Not
+    part of the default run: ``python3 chip_smoke.py --profile`` adds it."""
+    import torch.nn.functional as F
+
+    from srgd_tpu_torch.kernels import attention as at
+    from srgd_tpu_torch.kernels import linattn_block as lb
     on_card = device.type == 'cuda'
     gen = torch.Generator(device=device).manual_seed(seed + 4)
     x = torch.randn((batch_size, 3, tile_size, tile_size), generator=gen,
                     device=device)
     t = torch.zeros(batch_size, device=device)
     res = {'phase': 'profile', 'forwards': forwards, 'nets': {}}
-    for name, flags in (('default', {}), ('use_pallas', PALLAS_FLAGS)):
+    ok = True
+    for name, flags, merge_owner in (
+            ('default', {}, 'linattn_block'),
+            ('use_pallas', PALLAS_FLAGS, 'linear_attention_qkv')):
         net = build_flagship(torch, device, seed=seed, **flags, **net_kw).net
 
         def run(n):
@@ -666,25 +775,51 @@ def phase_profile(torch, device, *, tile_size=256, batch_size=8, seed=0,
         t0 = time.perf_counter()
         run(forwards)
         host_ms = (time.perf_counter() - t0) * 1e3 / forwards
-        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card
-                                         else [])
-        with profile(activities=acts) as prof:
-            run(forwards)
-        attr = 'self_device_time_total' if on_card else 'self_cpu_time_total'
-        rows = sorted(((getattr(e, attr) / 1e3 / forwards, e.count / forwards,
-                        e.key) for e in prof.key_averages()
-                       if getattr(e, attr) > 0
-                       # on the card kernels only, not the operators over them
-                       and (not on_card or e.device_type == DeviceType.CUDA)),
-                      reverse=True)
+        rows = _device_rows(torch, lambda: run(forwards), forwards, on_card)
+        by_kernel = _by_kernel(rows, merge_owner)
+        f32_ms = sum(ms for k in by_kernel.values()
+                     for fn, ms in k['device_kernels'].items()
+                     if fn in F32_ONLY_KERNELS)
         res['nets'][name] = {
             'host_ms_per_forward': host_ms,
             'kernel_ms_per_forward': sum(r[0] for r in rows),
+            'by_kernel': by_kernel,
+            'by_group': _by_group(rows),
+            'ms_in_float32_kernels': f32_ms,
             'top': [{'ms': ms, 'calls': calls, 'name': key[:200]}
                     for ms, calls, key in rows[:top]]}
+        ok = ok and sum(r[0] for r in rows) > 0 and f32_ms == 0
         del net
-    res['ok'] = all(n['kernel_ms_per_forward'] > 0
-                    for n in res['nets'].values())
+
+    def device_ms(fn, calls=5):
+        def run():
+            for _ in range(calls):
+                fn()
+            if on_card:
+                torch.cuda.synchronize()
+        run()
+        return sum(r[0] for r in _device_rows(torch, run, calls, on_card))
+
+    standalone = {}
+    for n, c in lin_shapes:
+        xs = torch.randn((batch_size, n, c), generator=gen,
+                         device=device).to(torch.bfloat16)
+        ws = [(torch.randn((c, 128), generator=gen, device=device)
+               * c ** -0.5).to(torch.bfloat16) for _ in range(3)]
+        wout = (torch.randn((128, c), generator=gen, device=device)
+                * 128 ** -0.5).to(torch.bfloat16)
+        g = torch.ones(c, device=device)
+        standalone[f'linattn_block_{n}_{c}'] = device_ms(
+            lambda: lb.linattn_block(xs, g, *ws, wout, g, g, dim_head=32))
+    for n in flash_shapes:
+        qkv = torch.randn((batch_size, n, 3, 4, 32), generator=gen,
+                          device=device).to(torch.bfloat16)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        standalone[f'attention_{n}'] = device_ms(lambda: at.attention(q, k, v))
+        standalone[f'sdpa_{n}'] = device_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v))
+    res['standalone_device_ms'] = standalone
+    res['ok'] = ok
     return res
 
 
@@ -708,6 +843,7 @@ def summary(kernels, slice_, slice_pallas):
                     'replaces': replaces, 'launches': launches[name],
                     'drive_launches': drive[name],
                     'max_abs_err': max(c['max_abs_err'] for c in mine),
+                    'max_rms_err': max(c['rms_err'] for c in mine),
                     'ms': main['ms'], 'plain_ms': main['plain_ms'],
                     'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
                     'library_ms': main['library_ms'],

@@ -1,6 +1,8 @@
-// Shared device helpers for the attention and linear-attention kernels.
+// Shared device helpers for the attention and linear-attention kernels: the
+// float32 instantiations and the kernels that run on the CUDA cores (the
+// bfloat16 tensor-core pieces are in mma.cuh).
 //
-// Every kernel keeps its working tiles in shared memory as float holding
+// These kernels keep their working tiles in shared memory as float holding
 // values already rounded to the element type T, so one code path serves
 // float and bfloat16: T only decides where values are rounded (the points
 // where the JAX reference casts to its compute dtype) and how global memory

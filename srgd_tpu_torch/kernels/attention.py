@@ -10,11 +10,21 @@ What bounds it on the H100: operations. At the flagship's bottleneck
 together while the two products are 4.3 GFLOP (both from the shapes). The
 plain version also writes and reads the (b, heads, n, n) float scores and
 probabilities through device memory, 134 MB each. What the design does about
-it: one block per 64 queries streams 64-key tiles through shared memory with
-an online softmax, each thread holding a 4 x 4 block of scores in registers,
-so no score reaches device memory. q, k and v are taken by their strides, so
-the transposed views of one qkv projection are read in place. This version
-runs the products as float FMAs on the CUDA cores. Times: PERF.md.
+it: an online softmax over 64-key tiles, so no score reaches device memory,
+with q, k and v taken by their strides, so the transposed views of one qkv
+projection are read in place. In bfloat16 both products run on the tensor
+cores in the shape of FlashAttention-2: each warp keeps 16 query rows as
+``mma.sync`` fragments in registers, K and V tiles arrive as bf16 through a
+three-stage ``cp.async`` ring, the probabilities are rounded to bf16 in
+registers and reused as the operand of P V, and the scale is folded into
+the multiply-add ahead of ``ex2``. With d = 32 there is one exponential for every
+64 multiply-adds, so the softmax sets the pace. In float32, the exact path,
+the products are float FMAs on the CUDA cores. Times: PERF.md.
+
+The bfloat16 kernel rounds at two points where the TPU kernel does not: q is
+not scaled before the product (the scale is applied to the float score) and
+p is rounded to bf16 before P V. ``tests/test_torch_kernels.py`` repeats that
+arithmetic in plain PyTorch and holds it to the tolerance on the CPU.
 """
 
 from __future__ import annotations
@@ -24,6 +34,8 @@ import torch
 from srgd_tpu_torch.kernels import _build
 
 launches = 0   # kernel launches through attention (never the plain version)
+
+TILE_K = 64    # csrc TK: keys per tile
 
 
 def attention_plain(q, k, v):
@@ -61,13 +73,19 @@ def _launch(q, k, v):
     if b == 0 or n == 0 or b * heads > 65535:
         raise ValueError(f'attention kernel needs 0 < b * heads <= 65535 and '
                          f'n > 0; got b {b}, heads {heads}, n {n}')
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and any(t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3])
+                    for t in (q, k, v)):
+        raise ValueError('the bfloat16 attention kernel copies 16 bytes at a '
+                         'time: q, k and v need 16-byte aligned storage and '
+                         'strides that are multiples of 8 elements; got '
+                         f'{q.stride()}, {k.stride()}, {v.stride()}')
     # written as (b, n, heads, d), so that the caller's merge of the heads
     # into (b, n, heads * d) is a view
     out = torch.empty((b, n, heads, d), device=q.device,
                       dtype=q.dtype).permute(0, 2, 1, 3)
     strides = [s for t in (q, k, v, out) for s in _strides(t)]
-    name = ('srgd_attention_bf16' if q.dtype == torch.bfloat16
-            else 'srgd_attention_f32')
+    name = 'srgd_attention_bf16' if bf16 else 'srgd_attention_f32'
     fn = _build.entry(name, 4, 15)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -18,11 +18,19 @@ the attention output) lives in shared memory and registers. Phase A streams
 each split of the sequence with the online-max update and leaves only per-split
 partials (m, z and the head-diagonal context blocks, 16 KB per split); a merge
 normalises the context once; phase B recomputes q per row tile and writes the
-output. This first version computes its products with float FMAs on the CUDA
-cores, which makes it compute-bound instead: 8.0 ms at b = 8, n = 65536,
-c = 128 in bf16 against 10.8 ms for the plain version (chip_smoke.py on an
-NVIDIA H100 80GB HBM3 at a 700 W power limit; PERF.md). wgmma is the next
-step.
+output. In bfloat16 the projections and the context product are ``wgmma``
+on the tensor cores over 64-row bf16 tiles: the weights stay resident in
+shared memory for c <= 256 (they stream through a ``cp.async`` ring at
+c = 512), blocks walk many row tiles, the next tile's 16-byte loads are in
+flight under this tile's products, k and v are computed transposed so that
+the k-softmax statistics stay inside a quad and exp(k - m) feeds the context
+product from registers, and the q-softmax is taken on the accumulator. In float32, the exact path, the products are float FMAs on the
+CUDA cores. Times: PERF.md.
+
+The wrapper packs the weights for the bfloat16 kernel on every call
+(``pack_weights``): wk | wv side by side as one (c, 256) operand, and all
+zero-padded to 128 hidden columns, so the kernel needs no case for a
+narrower hidden width.
 """
 
 from __future__ import annotations
@@ -35,8 +43,10 @@ from srgd_tpu_torch.kernels import _build
 
 launches = 0   # kernel launches through linattn_block (never the plain version)
 
-TILE_ROWS = 32        # csrc TM: rows per tile
+TILE_ROWS = 64        # csrc TMR: rows per tile of the bfloat16 kernel (the
+                      # float32 kernel's 32-row tiles divide it)
 TARGET_BLOCKS = 264   # phase A blocks to aim for: two per SM of an H100
+MAX_HIDDEN = 128      # csrc MAXH: 4 heads x 32
 
 
 def _head_mask(hidden: int, dim_head: int, device) -> torch.Tensor:
@@ -88,12 +98,30 @@ def linattn_block_plain(x, g1, wq, wk, wv, wout, bout, g2, *, dim_head: int):
 
 
 def _split(b: int, n: int) -> tuple[int, int]:
-    """(rows_per_split, nsplit) for phase A: about TARGET_BLOCKS blocks over
-    b * nsplit, each split a whole number of row tiles."""
+    """(rows_per_split, nsplit) for phase A: at most TARGET_BLOCKS blocks over
+    b * nsplit (a few blocks more would run as a wave of their own), each
+    split a whole number of row tiles."""
     tiles = -(-n // TILE_ROWS)
-    nsplit = max(1, min(tiles, -(-TARGET_BLOCKS // b)))
+    nsplit = max(1, min(tiles, TARGET_BLOCKS // b))
     rows = -(-tiles // nsplit) * TILE_ROWS
     return rows, -(-n // rows)
+
+
+def pack_weights(wq, wk, wv, wout):
+    """The bfloat16 kernel's operands: wq (c, 128), wk | wv (c, 256) with wv
+    from column 128, wout (128, c), each zero past ``hidden``. At the full
+    hidden width wq and wout are passed through and only wk | wv is copied."""
+    c, hidden = wq.shape
+    if hidden == MAX_HIDDEN:
+        return wq, torch.cat((wk, wv), dim=1), wout
+    wq_p = wq.new_zeros((c, MAX_HIDDEN))
+    wkv_p = wq.new_zeros((c, 2 * MAX_HIDDEN))
+    wout_p = wq.new_zeros((MAX_HIDDEN, c))
+    wq_p[:, :hidden] = wq
+    wkv_p[:, :hidden] = wk
+    wkv_p[:, MAX_HIDDEN:MAX_HIDDEN + hidden] = wv
+    wout_p[:hidden] = wout
+    return wq_p, wkv_p, wout_p
 
 
 def _launch(x, g1, wq, wk, wv, wout, bout, g2, dim_head):
@@ -110,7 +138,15 @@ def _launch(x, g1, wq, wk, wv, wout, bout, g2, dim_head):
         raise TypeError(f'linattn_block kernel takes float32 or bfloat16, '
                         f'got {x.dtype}')
     dev, dt = x.device, x.dtype
+    bf16 = dt == torch.bfloat16
+    if bf16 and c % 16:
+        raise ValueError(f'the bfloat16 linattn_block kernel multiplies in '
+                         f'steps of 16 channels: c must be a multiple of 16, '
+                         f'got {c}')
     x = x.contiguous()
+    if bf16 and x.data_ptr() % 16:
+        raise ValueError('the bfloat16 linattn_block kernel needs 16-byte '
+                         'aligned x')
     wq, wk, wv, wout = (w.to(device=dev, dtype=dt).contiguous()
                         for w in (wq, wk, wv, wout))
     g1s = (g1.float() * math.sqrt(c)).contiguous()
@@ -131,13 +167,17 @@ def _launch(x, g1, wq, wk, wv, wout, bout, g2, dim_head):
     ctxn = torch.empty((b, hidden, 32), **f32)
     out = torch.empty_like(x)
 
-    name = ('srgd_linattn_block_bf16' if dt == torch.bfloat16
-            else 'srgd_linattn_block_f32')
-    fn = _build.entry(name, 13, 6)
+    if bf16:
+        name = 'srgd_linattn_block_bf16'
+        weights = pack_weights(wq, wk, wv, wout)
+    else:
+        name = 'srgd_linattn_block_f32'
+        weights = (wq, wk, wv, wout)
+    fn = _build.entry(name, 9 + len(weights), 6)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(x.data_ptr(), g1s.data_ptr(), wq.data_ptr(), wk.data_ptr(),
-                 wv.data_ptr(), wout.data_ptr(), bout.data_ptr(),
+        err = fn(x.data_ptr(), g1s.data_ptr(), *(w.data_ptr() for w in weights),
+                 bout.data_ptr(),
                  g2s.data_ptr(), out.data_ptr(), part_m.data_ptr(),
                  part_z.data_ptr(), part_ctx.data_ptr(), ctxn.data_ptr(),
                  b, n, c, hidden, rows, nsplit, stream)

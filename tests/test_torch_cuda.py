@@ -193,3 +193,84 @@ def test_flagged_linear_attention_launches_at_any_n(cuda_device, hw):
         want = mod.cpu()(x.cpu())
     err = (got.float().cpu() - want.float()).abs().max().item()
     assert err <= chip_smoke.BF16_RTOL * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_tensor_core_kernels_on_ragged_shapes_at_full_width(cuda_device, dtype):
+    """chip_smoke.py's ragged cases: ``attention`` at n = 1000 and n = 24,
+    ``linattn_block`` at n = 4096 + 40, c = 256: the last 64-row tile of each
+    ends in a masked tail."""
+    res = chip_smoke.phase_kernels(
+        torch, cuda_device, b=8, lin_shapes=(), attn_shapes=(), gn_shapes=(),
+        linear_shapes=(), flash_shapes=(), iters=1)
+    cases = [c for c in res['cases'] if c['dtype'] == dtype]
+    assert {(c['kernel'], c['n']) for c in cases} == {
+        ('attention', 1000), ('attention', 24), ('linattn_block', 4136)}
+    assert all(c['ok'] for c in cases), cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('b,heads,n', [(2, 4, 200), (16, 4, 130), (1, 64, 70)])
+def test_attention_on_contiguous_operands_and_many_heads(cuda_device, dtype, b,
+                                                         heads, n):
+    """Plain contiguous (b, heads, n, 32) operands (not the transposed views
+    of a projection), up to b x heads = 64."""
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    q, k, v = (torch.randn(b, heads, n, 32, generator=g,
+                           device=cuda_device).to(dtype) for _ in range(3))
+    assert q.is_contiguous()
+    want = at.attention_plain(q, k, v).float()
+    tol = (chip_smoke.BF16_RTOL * want.abs().max().item()
+           if dtype == torch.bfloat16 else chip_smoke.F32_ATOL)
+    out = at.attention(q, k, v)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and out.dtype == dtype
+    assert (out.float() - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_bf16_kernels_raise_on_what_their_copies_cannot_take(cuda_device):
+    """The bfloat16 kernels copy 16 bytes at a time: a misaligned view or a
+    width that is no multiple of 16 raises; nothing goes to the float32
+    code quietly."""
+    before = chip_smoke.read_counts()
+    flat = torch.zeros(2 * 4 * 64 * 32 + 4, device=cuda_device,
+                       dtype=torch.bfloat16)
+    q = flat[4:].view(2, 4, 64, 32)
+    with pytest.raises(ValueError, match='16-byte aligned'):
+        at.attention(q, q, q)
+    x = torch.zeros(1, 64, 24, device=cuda_device, dtype=torch.bfloat16)
+    ones = torch.ones(24, device=cuda_device)
+    w = torch.zeros(24, 128, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match='multiple of 16'):
+        lb.linattn_block(x, ones, w, w, w, w.t().contiguous(), ones, ones)
+    assert chip_smoke.read_counts() == before
+    # the same width in float32 is taken
+    out = lb.linattn_block(x.float(), ones, w.float(), w.float(), w.float(),
+                           w.t().contiguous().float(), ones, ones)
+    torch.cuda.synchronize()
+    assert out.shape == x.shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('hidden', [32, 64, 96])
+def test_linattn_block_bf16_with_fewer_heads(cuda_device, hidden):
+    """hidden < 128: the packed weights are zero past hidden and the kernel
+    stores no partial for the missing heads."""
+    g = torch.Generator(device=cuda_device).manual_seed(hidden)
+    c, n = 64, 300
+    x = torch.randn(2, n, c, generator=g, device=cuda_device).bfloat16()
+    ws = [(torch.randn(c, hidden, generator=g, device=cuda_device)
+           / c ** 0.5).bfloat16() for _ in range(3)]
+    wout = (torch.randn(hidden, c, generator=g, device=cuda_device)
+            / hidden ** 0.5).bfloat16()
+    g1 = 1 + 0.1 * torch.randn(c, generator=g, device=cuda_device)
+    bout = 0.1 * torch.randn(c, generator=g, device=cuda_device)
+    got = lb.linattn_block(x, g1, *ws, wout, bout, g1, dim_head=32).float()
+    want = lb.linattn_block_plain(x, g1, *ws, wout, bout, g1,
+                                  dim_head=32).float()
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= \
+        chip_smoke.BF16_RTOL * want.abs().max().item()

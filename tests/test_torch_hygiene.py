@@ -28,7 +28,8 @@ import chip_smoke
 cpu = torch.device('cpu')
 kernels = chip_smoke.phase_kernels(
     torch, cpu, b=2, lin_shapes=((40, 32),), attn_shapes=((16, 64),),
-    gn_shapes=((40, 32),), linear_shapes=(40,), flash_shapes=(16,), iters=1)
+    gn_shapes=((40, 32),), linear_shapes=(40,), flash_shapes=(16,),
+    ragged_lin_shapes=((70, 32),), ragged_flash_shapes=(70, 24), iters=1)
 net = dict(dim=16, dim_mults=(1, 2), full_attn=(False, True))
 slice_ = chip_smoke.phase_slice(torch, cpu, size=40, tile_size=32, steps=2,
                                 batch_size=4, **net)
@@ -38,7 +39,8 @@ slice_pallas = chip_smoke.phase_slice_pallas(
 bench = chip_smoke.phase_bench(torch, cpu, lr_size=10, tile_size=32,
                                batch_size=4, forward_iters=1, **net)
 profile = chip_smoke.phase_profile(torch, cpu, tile_size=32, batch_size=2,
-                                   forwards=1, top=3, **net)
+                                   forwards=1, top=3, lin_shapes=((70, 32),),
+                                   flash_shapes=(70,), **net)
 def foreign():
     return sorted(k for k in sys.modules if k.split('.')[0] in
                   ('jax', 'jaxlib', 'flax', 'srgd_tpu'))
@@ -57,8 +59,9 @@ print(json.dumps({
     'ok': [kernels['ok'], slice_['ok'], slice_pallas['ok'], bench['ok'],
            profile['ok']],
     'slice': slice_, 'slice_pallas': slice_pallas, 'bench': bench,
-    'kernel_cases': [[c['kernel'], c['b'], c.get('film'), c['dtype']]
+    'kernel_cases': [[c['kernel'], c['b'], c.get('film'), c['dtype'], c['n']]
                      for c in kernels['cases']],
+    'profile': profile,
     'summary': chip_smoke.summary(kernels, slice_, slice_pallas)}))
 """
 
@@ -273,3 +276,66 @@ def test_port_copies_equal_their_originals(case, tmp_path):
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     if case == 'numeric_strings':
         assert got.lr == 1e-4 and got.epochs == 7 and got.prefix == '1e-3'
+
+
+def test_rehearsed_kernel_cases_hold_the_ragged_shapes(rehearsal):
+    """The two tensor-core kernels are also held at n that is no multiple of
+    their 64-row tiles, in both dtypes, with an rms error beside the max."""
+    cases = rehearsal['kernel_cases']
+    assert {c[3] for c in cases if c[0] == 'linattn_block' and c[4] == 70} == {
+        'bfloat16', 'float32'}
+    for n in (70, 24):
+        assert {c[3] for c in cases if c[0] == 'attention' and c[4] == n} == {
+            'bfloat16', 'float32'}
+    for k in rehearsal['summary']['kernels']:
+        assert 0 <= k['max_rms_err'] <= k['max_abs_err']
+
+
+def test_rehearsed_profile_sums_each_kernel_and_times_single_calls(rehearsal):
+    prof = rehearsal['profile']
+    for net in prof['nets'].values():
+        assert net['kernel_ms_per_forward'] > 0
+        # the CPU runs the plain versions: no device kernel of the port
+        assert net['by_kernel'] == {} and net['ms_in_float32_kernels'] == 0
+        assert net['by_group']['port_kernels'] == 0
+        assert abs(sum(net['by_group'].values())
+                   - net['kernel_ms_per_forward']) < 1e-6
+    assert set(prof['standalone_device_ms']) == {
+        'linattn_block_70_32', 'attention_70', 'sdpa_70'}
+    assert all(v > 0 for v in prof['standalone_device_ms'].values())
+
+
+def test_profile_attributes_device_kernels_to_the_ports_kernels():
+    import chip_smoke
+    rows = [(2.0, 6, 'void (anonymous namespace)::phase_b_mma<1, 16, 8>(__nv_bfloat16 const*)'),
+            (1.0, 6, 'void (anonymous namespace)::phase_a_mma<1, 16>(float*)'),
+            (0.5, 6, 'void srgd::merge_kv_partials<__nv_bfloat16>(float const*)'),
+            (0.3, 3, 'void (anonymous namespace)::attend<__nv_bfloat16>(int)'),
+            (9.0, 40, 'void at::native::vectorized_elementwise_kernel<4>(int)')]
+    got = chip_smoke._by_kernel(rows, 'linattn_block')
+    assert set(got) == {'linattn_block', 'attn_block'}
+    assert got['linattn_block']['ms'] == 3.5
+    assert got['linattn_block']['device_kernels'] == {
+        'phase_b_mma': 2.0, 'phase_a_mma': 1.0, 'merge_kv_partials': 0.5}
+    assert chip_smoke._by_kernel(rows[2:3], 'linear_attention_qkv') == {
+        'linear_attention_qkv': {'ms': 0.5,
+                                 'device_kernels': {'merge_kv_partials': 0.5}}}
+
+
+def test_profile_groups_every_device_kernel_once():
+    import chip_smoke
+    rows = [(2.0, 6, 'void (anonymous namespace)::phase_b_mma<1, 16, 2>(__nv_bfloat16 const*)'),
+            (0.5, 6, 'void srgd::merge_kv_partials<__nv_bfloat16>(float const*)'),
+            (3.0, 11, 'sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc'),
+            (0.4, 4, 'nvjet_tst_128x256_64x4_1x2_h_bz_coopA_TNN'),
+            (13.0, 38, 'void at::native::(anonymous namespace)::RowwiseMomentsCUDAKernel<float>(long)'),
+            (8.0, 38, 'void at::native::elementwise_kernel<128, 2, at::native::'
+                      'gpu_kernel_impl_nocast<at::native::direct_copy_kernel_cuda(int)'),
+            (9.0, 40, 'void at::native::vectorized_elementwise_kernel<4, silu>(int)'),
+            (0.25, 1, 'void something_else(int)')]
+    got = chip_smoke._by_group(rows)
+    assert got == {'port_kernels': 2.5, 'convolutions': 3.0, 'gemm': 0.4,
+                   'groupnorm_moments': 13.0, 'concatenations': 0.0,
+                   'copies_and_casts': 8.0, 'reductions': 0.0,
+                   'elementwise': 9.0, 'other': 0.25}
+    assert sum(got.values()) == sum(r[0] for r in rows)

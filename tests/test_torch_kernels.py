@@ -201,9 +201,97 @@ def test_groupnorm_chunks_cover_every_row():
         assert (nchunk - 1) * per < rows <= nchunk * per
 
 
-def test_linattn_split_covers_every_row():
-    for b, n in ((16, 65536), (8, 4096), (1, 1000), (2, 31), (3, 33)):
-        rows, nsplit = lb._split(b, n)
-        assert rows % lb.TILE_ROWS == 0
-        assert (nsplit - 1) * rows < n <= nsplit * rows
+@pytest.mark.parametrize('b,n', [
+    (16, 65536), (8, 4096), (1, 1000), (2, 31), (3, 33), (1, 65536),
+    (8, 65536), (8, 4096 + 40), (16, 4096 + 40), (1, 63), (8, 65), (16, 129),
+    (300, 1000)])
+def test_linattn_split_covers_every_row(b, n):
+    """Splits of whole 64-row tiles (which the float32 kernel's 32-row tiles
+    divide) that cover every row once, and never more blocks than aimed for
+    unless the batch alone exceeds them."""
+    rows, nsplit = lb._split(b, n)
+    assert lb.TILE_ROWS == 64 and rows % lb.TILE_ROWS == 0
+    assert (nsplit - 1) * rows < n <= nsplit * rows
+    assert nsplit == 1 or b * nsplit <= lb.TARGET_BLOCKS
 
+
+BF16_RTOL = 2e-2    # chip_smoke.py's bound: max|err| <= 2e-2 * max|ref|
+
+
+def _attention_model(q, k, v, tile_k=at.TILE_K):
+    """The bfloat16 kernel's arithmetic in plain PyTorch: the product of the
+    unscaled bf16 operands in float32, scale and log2(e) applied to the score
+    in one multiply, an online softmax over tiles of ``tile_k`` keys with
+    ``exp2``, p rounded to bfloat16 before P V (its row sum taken in
+    float32), the division by the sum last."""
+    n, d = q.shape[-2:]
+    sl = d ** -0.5 * 1.4426950408889634
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full(q.shape[:-1] + (1,), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(q.shape, dtype=torch.float32)
+    for k0 in range(0, n, tile_k):
+        s = (qf @ kf[..., k0:k0 + tile_k, :].transpose(-1, -2)) * sl
+        mn = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        al = torch.exp2(m - mn)
+        p = torch.exp2(s - mn)
+        l = l * al + p.sum(dim=-1, keepdim=True)
+        acc = acc * al + p.to(torch.bfloat16).float() @ vf[..., k0:k0 + tile_k, :]
+        m = mn
+    return (acc / l).to(q.dtype)
+
+
+@pytest.mark.parametrize('n', [64, 40, 200])
+def test_attention_rounding_model_fits_the_bf16_tolerance(n):
+    """The bfloat16 CUDA kernel scales the float score (not q) and rounds p
+    to bfloat16 before P V; ``_attention_model`` repeats that arithmetic with
+    the kernel's 64-key tiles and online rescaling. It stays inside the
+    card's tolerance of the plain version and of the Pallas kernel, at a
+    whole tile, a ragged one and several tiles."""
+    rng = np.random.default_rng(5)
+    q, k, v = (rng.normal(size=(2, 4, n, 32)).astype(np.float32)
+               for _ in range(3))
+    ta = [_torch(a, 'bfloat16') for a in (q, k, v)]
+    model = _attention_model(*ta)
+    assert model.dtype == torch.bfloat16 and model.shape == q.shape
+    plain = at.attention_plain(*ta).float()
+    pallas = torch.from_numpy(np.asarray(fused_attention(
+        *(_jax(a, 'bfloat16') for a in (q, k, v)), interpret=True),
+        np.float32))
+    for want in (plain, pallas):
+        err = (model.float() - want).abs().max().item()
+        assert err <= BF16_RTOL * want.abs().max().item()
+    # the model is not the plain version under another name
+    assert at.TILE_K == 64 and not torch.equal(model.float(), plain)
+    # one tile over all keys is the same softmax without the rescaling
+    whole = _attention_model(*ta, tile_k=n)
+    assert (whole.float() - model.float()).abs().max().item() <= \
+        BF16_RTOL * plain.abs().max().item()
+
+
+@pytest.mark.parametrize('hidden', [128, 64, 32])
+@pytest.mark.parametrize('c', [32, 192])
+def test_linattn_weight_packing_round_trips(c, hidden):
+    """``pack_weights`` lays wk | wv side by side and zero-pads to 128
+    hidden columns (wq and wout pass through at the full width); slicing
+    returns the four weights, and the block computed from the slices equals
+    the original."""
+    rng = np.random.default_rng(7)
+    ws = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).bfloat16()
+          for s in ((c, hidden), (c, hidden), (c, hidden), (hidden, c))]
+    wq_p, wkv_p, wout_p = lb.pack_weights(*ws)
+    assert wq_p.shape == (c, 128) and wkv_p.shape == (c, 256)
+    assert wout_p.shape == (128, c) and wkv_p.dtype == torch.bfloat16
+    back = (wq_p[:, :hidden], wkv_p[:, :hidden],
+            wkv_p[:, 128:128 + hidden], wout_p[:hidden])
+    assert (wq_p is ws[0]) == (hidden == 128)
+    assert all(torch.equal(a, b) for a, b in zip(back, ws))
+    # everything outside the four weights is zero
+    total = sum(w.float().abs().sum() for w in ws)
+    packed = sum(w.float().abs().sum() for w in (wq_p, wkv_p, wout_p))
+    assert torch.isclose(total, packed, rtol=1e-6)
+    x = torch.from_numpy(rng.normal(size=(1, 24, c)).astype(np.float32)).bfloat16()
+    g = torch.ones(c)
+    assert torch.equal(
+        lb.linattn_block_plain(x, g, *back, g, g, dim_head=32),
+        lb.linattn_block_plain(x, g, *ws, g, g, dim_head=32))
