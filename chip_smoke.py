@@ -11,9 +11,10 @@ Phases, each printed as one JSON line:
 3. kernels: each of the six kernels against its plain PyTorch version at every
    flagship shape (b = 8; ``groupnorm_silu`` with and without FiLM; every
    kernel's largest shape also at b = 16, the batch class CFG gives) in
-   bfloat16 and float32 (``attention`` and ``linattn_block`` also at ragged
-   n, where their 64-row tiles end in a masked tail), with max-abs and rms
-   error, the
+   bfloat16 and float32 (the four tensor-core kernels, ``attention``,
+   ``linattn_block``, ``attn_block`` and the linear-attention cores, also at
+   ragged n, where their 64-row tiles end in a masked tail), with max-abs
+   and rms error, the
    CUDA-event times of both (the 50 MB L2 is flushed before every timed call)
    and the bound: the least time the card could take, the larger of the
    function's bytes (inputs read once, outputs written once) over the memory
@@ -46,7 +47,8 @@ Phases, each printed as one JSON line:
    each net, device time per kernel name, per kernel of the port (summed
    over all its launches and shapes) and per group of PyTorch's own kernels,
    and the device time of single calls of
-   ``linattn_block`` and ``attention`` beside SDPA's.
+   ``linattn_block``, ``attn_block``, ``linear_attention_qkv`` and
+   ``attention`` beside SDPA's.
 
 Every launch count is set to 0 just before a path is driven and read just
 after. Then the kernel summary and, last, the device line. Exits non-zero,
@@ -74,10 +76,13 @@ GN_SHAPES = ((65536, 128), (16384, 128), (16384, 256), (4096, 256),
              (4096, 512), (1024, 512), (1024, 1024))
 LINEAR_SHAPES = (65536, 16384, 4096)
 FLASH_SHAPES = (1024,)
-# ragged cases at full width for the kernels whose tiles are 64 rows: n of
-# `attention` and (n, c) of `linattn_block`, no multiples of a tile
+# ragged cases at full width for the tensor-core kernels, whose tiles are 64
+# rows: n of `attention`, (n, c) of `linattn_block` and `attn_block`, n of
+# the linear-attention cores; no multiples of a tile
 RAGGED_FLASH_SHAPES = (1000, 24)
 RAGGED_LINATTN_SHAPES = ((4096 + 40, 256),)
+RAGGED_ATTN_SHAPES = ((1000, 512), (24, 512))
+RAGGED_LINEAR_SHAPES = (4096 + 40,)
 FLUSH_WRITES = 16   # see time_ms
 BF16_RTOL = 2e-2    # max|kernel - plain| <= 2e-2 * max|plain|
 F32_ATOL = 1e-4     # max|kernel - plain| <= 1e-4 * max(1, max|plain|)
@@ -316,10 +321,12 @@ def phase_kernels(torch, device, *, b=8, lin_shapes=LINATTN_SHAPES,
                   attn_shapes=ATTN_SHAPES, gn_shapes=GN_SHAPES,
                   linear_shapes=LINEAR_SHAPES, flash_shapes=FLASH_SHAPES,
                   ragged_lin_shapes=RAGGED_LINATTN_SHAPES,
-                  ragged_flash_shapes=RAGGED_FLASH_SHAPES, iters=5, seed=0):
+                  ragged_flash_shapes=RAGGED_FLASH_SHAPES,
+                  ragged_attn_shapes=RAGGED_ATTN_SHAPES,
+                  ragged_linear_shapes=RAGGED_LINEAR_SHAPES, iters=5, seed=0):
     """Each kernel against its plain version at the given shapes, bf16 and f32,
     at batch b, at its largest shape also at 2 b, the batch class CFG
-    gives, and the ragged shapes of the two tensor-core kernels at b. The
+    gives, and the ragged shapes of the tensor-core kernels at b. The
     rms error is reported beside the gated max-abs error. Inputs come from a
     seeded generator, weights scaled by 1/sqrt(fan-in)."""
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -330,7 +337,9 @@ def phase_kernels(torch, device, *, b=8, lin_shapes=LINATTN_SHAPES,
                   flash_shapes=flash_shapes)
     largest = {k: _largest(v) if v else () for k, v in shapes.items()}
     ragged = {**dict.fromkeys(shapes, ()), 'lin_shapes': ragged_lin_shapes,
-              'flash_shapes': ragged_flash_shapes}
+              'flash_shapes': ragged_flash_shapes,
+              'attn_shapes': ragged_attn_shapes,
+              'linear_shapes': ragged_linear_shapes}
     todo = itertools.chain(
         zip(itertools.repeat(b),
             kernel_cases(torch, device, b, gen, **shapes)),
@@ -663,12 +672,17 @@ DEVICE_KERNELS = {
     'phase_a': 'linattn_block', 'phase_b': 'linattn_block',
     'phase_a_mma': 'linattn_block', 'phase_b_mma': 'linattn_block',
     'qkv_proj': 'attn_block', 'attend': 'attn_block',
+    'qkv_proj_mma': 'attn_block', 'attn_block_flash': 'attn_block',
+    'out_proj_mma': 'attn_block',
     'gn_stats': 'groupnorm_silu', 'gn_fold': 'groupnorm_silu',
     'gn_apply': 'groupnorm_silu', 'flash': 'attention',
     'flash_mma': 'attention', 'kv_partials': 'linear_attention_qkv',
-    'out_rows': 'linear_attention_qkv'}
+    'out_rows': 'linear_attention_qkv',
+    'kv_partials_mma': 'linear_attention_qkv',
+    'out_rows_mma': 'linear_attention_qkv'}
 # the float32 device kernels: a bfloat16 net must spend no time in them
-F32_ONLY_KERNELS = ('phase_a', 'phase_b', 'flash')
+F32_ONLY_KERNELS = ('phase_a', 'phase_b', 'flash', 'qkv_proj', 'attend',
+                    'kv_partials', 'out_rows')
 
 
 def _device_rows(torch, run, calls: int, on_card: bool):
@@ -687,15 +701,28 @@ def _device_rows(torch, run, calls: int, on_card: bool):
                   reverse=True)
 
 
+def _function(key: str) -> str:
+    """The function name of a profiler key: ``ns::name<args>(params)``."""
+    import re
+    m = re.search(r'(\w+)(<.*>)?\(', key)
+    return m.group(1) if m else key
+
+
+def _by_function(rows) -> dict:
+    """ms per call of every device kernel, by function name."""
+    out = {}
+    for ms, _, key in rows:
+        out[_function(key)] = out.get(_function(key), 0.0) + ms
+    return out
+
+
 def _by_kernel(rows, merge_owner: str) -> dict:
     """ms per call of each of the port's kernels, summed over its device
     kernels by function name; the partial merge that two of them share goes
     to ``merge_owner``, the one the profiled net routes to."""
-    import re
     out = {}
     for ms, calls, key in rows:
-        m = re.search(r'(\w+)(<.*>)?\(', key)
-        fn = m.group(1) if m else key
+        fn = _function(key)
         owner = merge_owner if fn == 'merge_kv_partials' else DEVICE_KERNELS.get(fn)
         if owner is not None:
             entry = out.setdefault(owner, {'ms': 0.0, 'device_kernels': {}})
@@ -720,12 +747,10 @@ OP_GROUPS = (
 def _by_group(rows) -> dict:
     """ms per call of every device kernel summed by group: the port's own
     kernels together, then ``OP_GROUPS``, then ``other``."""
-    import re
     out = {'port_kernels': 0.0, **{g: 0.0 for g, _ in OP_GROUPS}, 'other': 0.0}
     for ms, _, key in rows:
-        m = re.search(r'(\w+)(<.*>)?\(', key)
-        if m and (m.group(1) in DEVICE_KERNELS
-                  or m.group(1) == 'merge_kv_partials'):
+        fn = _function(key)
+        if fn in DEVICE_KERNELS or fn == 'merge_kv_partials':
             group = 'port_kernels'
         else:
             group = next((g for g, subs in OP_GROUPS
@@ -736,6 +761,7 @@ def _by_group(rows) -> dict:
 
 def phase_profile(torch, device, *, tile_size=256, batch_size=8, seed=0,
                   forwards=3, top=24, lin_shapes=LINATTN_SHAPES,
+                  attn_shapes=ATTN_SHAPES, linear_shapes=LINEAR_SHAPES,
                   flash_shapes=FLASH_SHAPES, **net_kw):
     """``torch.profiler`` over ``forwards`` U-Net forwards of the default and
     of the ``use_pallas`` net (b = 8 tiles of 256 px, bf16): self device time
@@ -745,13 +771,16 @@ def phase_profile(torch, device, *, tile_size=256, batch_size=8, seed=0,
     shapes, and ``by_group``: every device kernel's time by what it does. A
     bfloat16 net must spend no time in the float32 device kernels.
     Then ``standalone``: the device time (no host latency, L2 warm) of one
-    call of the two tensor-core kernels at the flagship shapes, ``attention``
-    beside ``F.scaled_dot_product_attention``. Not
+    call of the four tensor-core kernels at the flagship shapes,
+    ``attention`` beside ``F.scaled_dot_product_attention``, and of the two
+    kernels of three launches by device kernel. Not
     part of the default run: ``python3 chip_smoke.py --profile`` adds it."""
     import torch.nn.functional as F
 
     from srgd_tpu_torch.kernels import attention as at
+    from srgd_tpu_torch.kernels import attn_block as ab
     from srgd_tpu_torch.kernels import linattn_block as lb
+    from srgd_tpu_torch.kernels import linear_attention as la
     on_card = device.type == 'cuda'
     gen = torch.Generator(device=device).manual_seed(seed + 4)
     x = torch.randn((batch_size, 3, tile_size, tile_size), generator=gen,
@@ -791,16 +820,25 @@ def phase_profile(torch, device, *, tile_size=256, batch_size=8, seed=0,
         ok = ok and sum(r[0] for r in rows) > 0 and f32_ms == 0
         del net
 
-    def device_ms(fn, calls=5):
+    def device_rows(fn, calls=5):
         def run():
             for _ in range(calls):
                 fn()
             if on_card:
                 torch.cuda.synchronize()
         run()
-        return sum(r[0] for r in _device_rows(torch, run, calls, on_card))
+        return _device_rows(torch, run, calls, on_card)
 
-    standalone = {}
+    def device_ms(fn):
+        return sum(r[0] for r in device_rows(fn))
+
+    def device_split(name, fn):
+        """The call's device time, and by device kernel in ``split``."""
+        rows = device_rows(fn)
+        standalone[name] = sum(r[0] for r in rows)
+        split[name] = _by_function(rows)
+
+    standalone, split = {}, {}
     for n, c in lin_shapes:
         xs = torch.randn((batch_size, n, c), generator=gen,
                          device=device).to(torch.bfloat16)
@@ -811,6 +849,21 @@ def phase_profile(torch, device, *, tile_size=256, batch_size=8, seed=0,
         g = torch.ones(c, device=device)
         standalone[f'linattn_block_{n}_{c}'] = device_ms(
             lambda: lb.linattn_block(xs, g, *ws, wout, g, g, dim_head=32))
+    for n, c in attn_shapes:
+        xs = torch.randn((batch_size, n, c), generator=gen,
+                         device=device).to(torch.bfloat16)
+        wqkv = (torch.randn((c, 384), generator=gen, device=device)
+                * c ** -0.5).to(torch.bfloat16)
+        wout = (torch.randn((128, c), generator=gen, device=device)
+                * 128 ** -0.5).to(torch.bfloat16)
+        g = torch.ones(c, device=device)
+        device_split(f'attn_block_{n}_{c}',
+                     lambda: ab.attn_block(xs, g, wqkv, wout, g))
+    for n in linear_shapes:
+        qkv = torch.randn((batch_size, n, 384), generator=gen,
+                          device=device).to(torch.bfloat16)
+        device_split(f'linear_attention_qkv_{n}',
+                     lambda: la.linear_attention_qkv(qkv))
     for n in flash_shapes:
         qkv = torch.randn((batch_size, n, 3, 4, 32), generator=gen,
                           device=device).to(torch.bfloat16)
@@ -819,6 +872,7 @@ def phase_profile(torch, device, *, tile_size=256, batch_size=8, seed=0,
         standalone[f'sdpa_{n}'] = device_ms(
             lambda: F.scaled_dot_product_attention(q, k, v))
     res['standalone_device_ms'] = standalone
+    res['standalone_by_device_kernel'] = split
     res['ok'] = ok
     return res
 

@@ -241,9 +241,6 @@ __host__ __device__ constexpr size_t phase_b_mma_bytes(int c, bool resident) {
          sizeof(float) * 2 * TMR;
 }
 
-__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
-
 // Start the 16-byte loads of a 64-row tile of x into registers. Warp w takes
 // rows 8w .. 8w + 7, LPR lanes to a row (16 for c <= 128, so that two rows
 // keep all 32 lanes busy, else 32), lane l of a row the chunks l + LPR ch.
@@ -758,16 +755,6 @@ phase_b_mma(const bf16* __restrict__ x, const float* __restrict__ g1s,
     __syncthreads();  // ys is rewritten at the top of the next tile
   }
   cp_async_wait<0>();  // the chunk that a further tile would have used
-}
-
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return sms;
 }
 
 template <int CH, int LPR, int NB64>

@@ -92,6 +92,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// The low and high bf16 of a register, widened to float.
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
 // The A fragment of 16 columns held as two neighbouring accumulator blocks.
 __device__ __forceinline__ void frag_from_acc(uint32_t (&a)[4], const float (&c0)[4],
                                               const float (&c1)[4]) {
@@ -230,6 +234,18 @@ __device__ __forceinline__ void copy_mn_async(bf16* dst, int cs, const bf16* __r
     const int k = idx / nchunks, j = idx - k * nchunks;
     cp_async16(dst + j * cs + k * 8, w + (size_t)(k0 + k) * wcols + (nch0 + j) * 8);
   }
+}
+
+// Streaming multiprocessors of the current device, read once per process
+// (the launches that size persistent grids by it).
+inline int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
 }
 
 }  // namespace srgd

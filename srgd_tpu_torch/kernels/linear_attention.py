@@ -6,19 +6,26 @@ Replaces the Pallas TPU kernels of ``srgd_tpu/kernels/linear_attention.py``:
 ``fused_linear_attention_qkv`` (``linear_attention_qkv``). The CUDA source is
 ``srgd_tpu_torch/csrc/linear_attention.cu``: one device implementation that
 addresses q, k and v by three base pointers and a row stride, so the packed
-(b, n, 3C) projection is read in place.
+(b, n, 3C) projection is read in place and the two entries agree bit for bit.
 
-What bounds it on the H100: memory. Per call the function reads q, k, v and
+What bounds it on the H100: bytes. Per call the function reads q, k, v and
 writes the output once, 4 b n C elements (0.54 GB at b = 8, n = 65536,
-C = 128 in bf16), against 64 flops per element moved in the head-diagonal
-products, far under the card's ridge. The plain version materialises the
-float32 exponentials of q and k and the (b, n, C) quotients in device
-memory. What the design does about it: k and v stream once through shared
-memory with an online column max, split over the sequence into per-block
-partials that a merge kernel combines in a fixed order; q streams once
-through a pass that owns whole rows; only the head-diagonal 32 x 32 blocks
-of the context are computed. This version runs the products as float FMAs on
-the CUDA cores. Times: PERF.md.
+C = 128 in bf16), against 16 flops a byte in the head-diagonal products, far
+under the card's ridge. The plain version materialises the float32
+exponentials of q and k and the (b, n, C) quotients in device memory.
+
+What the design does about it: k and v stream once, split over the sequence
+into per-block partials that a merge kernel combines in a fixed order; q
+streams once through a pass that owns whole rows; only the head-diagonal
+32 x 32 blocks of the context are computed. In bfloat16 both passes copy
+16-byte pieces through ``cp.async`` rings (three stages in pass A, two in
+pass C), take the softmax statistics with every thread of a block, and run
+the products as ``mma.sync`` on the tensor cores. That path rounds three
+intermediates to bfloat16 that the TPU kernel keeps in float: exp(k - m)
+(before its division by the column sum), the normalised context and the
+normalised q (``tests/test_torch_rounding.py`` repeats that arithmetic in
+plain PyTorch). The plain versions keep the TPU kernel's all-float math. In
+float32 the products are float FMAs on the CUDA cores. Times: PERF.md.
 """
 
 from __future__ import annotations
@@ -67,6 +74,11 @@ def _launch(q, k, v, b, n, c, ld, dim_head):
     if b == 0 or n == 0 or b > 65535:
         raise ValueError(f'linear_attention kernel needs 0 < b <= 65535 and '
                          f'n > 0; got b {b}, n {n}')
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (q, k, v)):
+        raise ValueError('the bfloat16 linear_attention kernel copies 16 '
+                         'bytes at a time: q, k and v need 16-byte aligned '
+                         'storage')
     dev = q.device
     rows, nsplit = _split(b, n)
     f32 = dict(device=dev, dtype=torch.float32)

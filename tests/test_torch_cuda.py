@@ -199,14 +199,17 @@ def test_flagged_linear_attention_launches_at_any_n(cuda_device, hw):
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
 def test_tensor_core_kernels_on_ragged_shapes_at_full_width(cuda_device, dtype):
     """chip_smoke.py's ragged cases: ``attention`` at n = 1000 and n = 24,
-    ``linattn_block`` at n = 4096 + 40, c = 256: the last 64-row tile of each
-    ends in a masked tail."""
+    ``linattn_block`` at n = 4096 + 40, c = 256, ``attn_block`` at n = 1000
+    and 24, c = 512, and both linear-attention entries at n = 4096 + 40: the
+    last 64-row tile of each ends in a masked tail."""
     res = chip_smoke.phase_kernels(
         torch, cuda_device, b=8, lin_shapes=(), attn_shapes=(), gn_shapes=(),
         linear_shapes=(), flash_shapes=(), iters=1)
     cases = [c for c in res['cases'] if c['dtype'] == dtype]
     assert {(c['kernel'], c['n']) for c in cases} == {
-        ('attention', 1000), ('attention', 24), ('linattn_block', 4136)}
+        ('attention', 1000), ('attention', 24), ('linattn_block', 4136),
+        ('attn_block', 1000), ('attn_block', 24),
+        ('linear_attention_qkv', 4136), ('linear_attention', 4136)}
     assert all(c['ok'] for c in cases), cases
 
 
@@ -232,26 +235,41 @@ def test_attention_on_contiguous_operands_and_many_heads(cuda_device, dtype, b,
 
 @pytest.mark.cuda
 def test_bf16_kernels_raise_on_what_their_copies_cannot_take(cuda_device):
-    """The bfloat16 kernels copy 16 bytes at a time: a misaligned view or a
-    width that is no multiple of 16 raises; nothing goes to the float32
-    code quietly."""
+    """The bfloat16 kernels copy 16 bytes at a time and multiply in steps of
+    16 channels: a misaligned view or a width that is no multiple of 16
+    raises; nothing goes to the float32 code quietly."""
+    def bf16(*shape, offset=0):
+        n = offset + int(torch.tensor(shape).prod())
+        flat = torch.zeros(n, device=cuda_device, dtype=torch.bfloat16)
+        return flat[offset:].view(*shape)
+
     before = chip_smoke.read_counts()
-    flat = torch.zeros(2 * 4 * 64 * 32 + 4, device=cuda_device,
-                       dtype=torch.bfloat16)
-    q = flat[4:].view(2, 4, 64, 32)
+    q = bf16(2, 4, 64, 32, offset=4)
     with pytest.raises(ValueError, match='16-byte aligned'):
         at.attention(q, q, q)
-    x = torch.zeros(1, 64, 24, device=cuda_device, dtype=torch.bfloat16)
-    ones = torch.ones(24, device=cuda_device)
-    w = torch.zeros(24, 128, device=cuda_device, dtype=torch.bfloat16)
+    ones = torch.ones(128, device=cuda_device)
+    x, w = bf16(1, 64, 24), bf16(24, 128)
     with pytest.raises(ValueError, match='multiple of 16'):
-        lb.linattn_block(x, ones, w, w, w, w.t().contiguous(), ones, ones)
+        lb.linattn_block(x, ones[:24], w, w, w, w.t().contiguous(), ones[:24],
+                         ones[:24])
+    xa, wqkv, wo = bf16(1, 64, 24), bf16(24, 384), bf16(128, 24)
+    with pytest.raises(ValueError, match='multiple of 16'):
+        ab.attn_block(xa, ones[:24], wqkv, wo, ones[:24])
+    with pytest.raises(ValueError, match='16-byte aligned'):
+        ab.attn_block(bf16(1, 64, 128, offset=4), ones, bf16(128, 384),
+                      bf16(128, 128), ones)
+    q = bf16(2, 64, 128, offset=4)
+    with pytest.raises(ValueError, match='16-byte aligned'):
+        la.linear_attention(q, q, q)
     assert chip_smoke.read_counts() == before
-    # the same width in float32 is taken
-    out = lb.linattn_block(x.float(), ones, w.float(), w.float(), w.float(),
-                           w.t().contiguous().float(), ones, ones)
+    # the same widths in float32 are taken
+    out = lb.linattn_block(x.float(), ones[:24], w.float(), w.float(),
+                           w.float(), w.t().contiguous().float(), ones[:24],
+                           ones[:24])
+    out_a = ab.attn_block(xa.float(), ones[:24], wqkv.float(), wo.float(),
+                          ones[:24])
     torch.cuda.synchronize()
-    assert out.shape == x.shape
+    assert out.shape == x.shape and out_a.shape == xa.shape
 
 
 @pytest.mark.cuda
@@ -271,6 +289,86 @@ def test_linattn_block_bf16_with_fewer_heads(cuda_device, hidden):
     got = lb.linattn_block(x, g1, *ws, wout, bout, g1, dim_head=32).float()
     want = lb.linattn_block_plain(x, g1, *ws, wout, bout, g1,
                                   dim_head=32).float()
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= \
+        chip_smoke.BF16_RTOL * want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_redesigned_kernels_match_plain_at_full_width(cuda_device, dtype):
+    """``attn_block`` at c = 512 and 1024 (n = 1024 and a ragged 1000) and
+    both linear-attention entries at n = 16384 and a ragged 1000, b = 8."""
+    res = chip_smoke.phase_kernels(
+        torch, cuda_device, b=8, lin_shapes=(), gn_shapes=(), flash_shapes=(),
+        attn_shapes=((1024, 512), (1024, 1024), (1000, 1024)),
+        linear_shapes=(16384, 1000), ragged_lin_shapes=(),
+        ragged_flash_shapes=(), ragged_attn_shapes=(),
+        ragged_linear_shapes=(), iters=1)
+    cases = [c for c in res['cases'] if c['dtype'] == dtype]
+    assert len(cases) == 3 + 4 + 1 + 2, cases
+    assert all(c['ok'] for c in cases), cases
+
+
+@pytest.mark.cuda
+def test_bf16_redesigned_kernels_count_one_launch_each(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(2, 100, 512, generator=g, device=cuda_device).bfloat16()
+    ones = torch.ones(512, device=cuda_device)
+    wqkv = (torch.randn(512, 384, generator=g, device=cuda_device)
+            / 512 ** 0.5).bfloat16()
+    wout = (torch.randn(128, 512, generator=g, device=cuda_device)
+            / 128 ** 0.5).bfloat16()
+    qkv = torch.randn(2, 100, 384, generator=g, device=cuda_device).bfloat16()
+    chip_smoke.reset_counts()
+    ab.attn_block(x, ones, wqkv, wout, ones)
+    la.linear_attention_qkv(qkv)
+    torch.cuda.synchronize()
+    assert chip_smoke.read_counts() == {
+        'linattn_block': 0, 'attn_block': 1, 'groupnorm_silu': 0,
+        'attention': 0, 'linear_attention': 0, 'linear_attention_qkv': 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('c', [32, 80, 208])
+def test_attn_block_bf16_at_widths_under_a_column_block(cuda_device, c):
+    """c = 32 (a small net's attention block), 80 and 208: the last 64-column
+    block of to_out is partial; its extra columns are neither stored nor
+    read from the bias."""
+    g = torch.Generator(device=cuda_device).manual_seed(c)
+    n = 200
+    x = torch.randn(2, n, c, generator=g, device=cuda_device).bfloat16()
+    wqkv = (torch.randn(c, 384, generator=g, device=cuda_device)
+            / c ** 0.5).bfloat16()
+    wout = (torch.randn(128, c, generator=g, device=cuda_device)
+            / 128 ** 0.5).bfloat16()
+    g1 = 1 + 0.1 * torch.randn(c, generator=g, device=cuda_device)
+    bout = 0.1 * torch.randn(c, generator=g, device=cuda_device)
+    got = ab.attn_block(x, g1, wqkv, wout, bout).float()
+    want = ab.attn_block_plain(x, g1, wqkv, wout, bout, heads=4,
+                               dim_head=32).float()
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= \
+        chip_smoke.BF16_RTOL * want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('heads', [1, 2, 3])
+def test_attn_block_bf16_with_fewer_heads(cuda_device, heads):
+    """hidden < 128: the wrapper zero-pads q, k, v to 128 columns each
+    (``pack_qkv``) and the attention runs over the first heads only."""
+    g = torch.Generator(device=cuda_device).manual_seed(heads)
+    c, n, hidden = 192, 300, 32 * heads
+    x = torch.randn(2, n, c, generator=g, device=cuda_device).bfloat16()
+    wqkv = (torch.randn(c, 3 * hidden, generator=g, device=cuda_device)
+            / c ** 0.5).bfloat16()
+    wout = (torch.randn(hidden, c, generator=g, device=cuda_device)
+            / hidden ** 0.5).bfloat16()
+    g1 = 1 + 0.1 * torch.randn(c, generator=g, device=cuda_device)
+    bout = 0.1 * torch.randn(c, generator=g, device=cuda_device)
+    got = ab.attn_block(x, g1, wqkv, wout, bout, heads=heads).float()
+    want = ab.attn_block_plain(x, g1, wqkv, wout, bout, heads=heads,
+                               dim_head=32).float()
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= \
         chip_smoke.BF16_RTOL * want.abs().max().item()

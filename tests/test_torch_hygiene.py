@@ -29,7 +29,9 @@ cpu = torch.device('cpu')
 kernels = chip_smoke.phase_kernels(
     torch, cpu, b=2, lin_shapes=((40, 32),), attn_shapes=((16, 64),),
     gn_shapes=((40, 32),), linear_shapes=(40,), flash_shapes=(16,),
-    ragged_lin_shapes=((70, 32),), ragged_flash_shapes=(70, 24), iters=1)
+    ragged_lin_shapes=((70, 32),), ragged_flash_shapes=(70, 24),
+    ragged_attn_shapes=((70, 64), (24, 64)), ragged_linear_shapes=(70,),
+    iters=1)
 net = dict(dim=16, dim_mults=(1, 2), full_attn=(False, True))
 slice_ = chip_smoke.phase_slice(torch, cpu, size=40, tile_size=32, steps=2,
                                 batch_size=4, **net)
@@ -40,7 +42,9 @@ bench = chip_smoke.phase_bench(torch, cpu, lr_size=10, tile_size=32,
                                batch_size=4, forward_iters=1, **net)
 profile = chip_smoke.phase_profile(torch, cpu, tile_size=32, batch_size=2,
                                    forwards=1, top=3, lin_shapes=((70, 32),),
-                                   flash_shapes=(70,), **net)
+                                   attn_shapes=((70, 64),),
+                                   linear_shapes=(70,), flash_shapes=(70,),
+                                   **net)
 def foreign():
     return sorted(k for k in sys.modules if k.split('.')[0] in
                   ('jax', 'jaxlib', 'flax', 'srgd_tpu'))
@@ -279,14 +283,15 @@ def test_port_copies_equal_their_originals(case, tmp_path):
 
 
 def test_rehearsed_kernel_cases_hold_the_ragged_shapes(rehearsal):
-    """The two tensor-core kernels are also held at n that is no multiple of
+    """The tensor-core kernels are also held at n that is no multiple of
     their 64-row tiles, in both dtypes, with an rms error beside the max."""
     cases = rehearsal['kernel_cases']
-    assert {c[3] for c in cases if c[0] == 'linattn_block' and c[4] == 70} == {
-        'bfloat16', 'float32'}
-    for n in (70, 24):
-        assert {c[3] for c in cases if c[0] == 'attention' and c[4] == n} == {
-            'bfloat16', 'float32'}
+    for kernel, n in (('linattn_block', 70), ('attention', 70),
+                      ('attention', 24), ('attn_block', 70),
+                      ('attn_block', 24), ('linear_attention_qkv', 70),
+                      ('linear_attention', 70)):
+        assert {c[3] for c in cases if c[0] == kernel and c[4] == n} == {
+            'bfloat16', 'float32'}, (kernel, n)
     for k in rehearsal['summary']['kernels']:
         assert 0 <= k['max_rms_err'] <= k['max_abs_err']
 
@@ -301,8 +306,14 @@ def test_rehearsed_profile_sums_each_kernel_and_times_single_calls(rehearsal):
         assert abs(sum(net['by_group'].values())
                    - net['kernel_ms_per_forward']) < 1e-6
     assert set(prof['standalone_device_ms']) == {
-        'linattn_block_70_32', 'attention_70', 'sdpa_70'}
+        'linattn_block_70_32', 'attn_block_70_64', 'linear_attention_qkv_70',
+        'attention_70', 'sdpa_70'}
     assert all(v > 0 for v in prof['standalone_device_ms'].values())
+    split = prof['standalone_by_device_kernel']
+    assert set(split) == {'attn_block_70_64', 'linear_attention_qkv_70'}
+    for name, by_fn in split.items():
+        assert abs(sum(by_fn.values())
+                   - prof['standalone_device_ms'][name]) < 1e-9
 
 
 def test_profile_attributes_device_kernels_to_the_ports_kernels():
