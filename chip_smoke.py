@@ -14,7 +14,8 @@ Phases, each printed as one JSON line:
    bfloat16 and float32 (the four tensor-core kernels, ``attention``,
    ``linattn_block``, ``attn_block`` and the linear-attention cores, also at
    ragged n, where their 64-row tiles end in a masked tail), with max-abs
-   and rms error, the
+   and rms error (``groupnorm_silu`` also called twice on the same inputs,
+   which must give the same bits), the
    CUDA-event times of both (the 50 MB L2 is flushed before every timed call)
    and the bound: the least time the card could take, the larger of the
    function's bytes (inputs read once, outputs written once) over the memory
@@ -45,10 +46,11 @@ Phases, each printed as one JSON line:
    ``use_pallas`` net.
 7. profile, only with ``--profile``: ``torch.profiler`` over three forwards of
    each net, device time per kernel name, per kernel of the port (summed
-   over all its launches and shapes) and per group of PyTorch's own kernels,
-   and the device time of single calls of
-   ``linattn_block``, ``attn_block``, ``linear_attention_qkv`` and
-   ``attention`` beside SDPA's.
+   over all its launches and shapes, and its device kernels per forward)
+   and per group of PyTorch's own kernels, and the device time of single
+   calls of ``linattn_block``, ``attn_block``, ``linear_attention_qkv``,
+   ``groupnorm_silu`` (one device kernel a call) and ``attention`` beside
+   SDPA's.
 
 Every launch count is set to 0 just before a path is driven and read just
 after. Then the kernel summary and, last, the device line. Exits non-zero,
@@ -353,13 +355,17 @@ def phase_kernels(torch, device, *, b=8, lin_shapes=LINATTN_SHAPES,
             name = str(dtype).replace('torch.', '')
             case = make(dtype)
             got, want = case['kern']().float(), case['plain']().float()
+            # groupnorm_silu adds its partials in a fixed order: a second
+            # call on the same inputs gives the same bits
+            repeat = (bool(torch.equal(case['kern']().float(), got))
+                      if kind == 'groupnorm_silu' else None)
             if device.type == 'cuda':
                 torch.cuda.synchronize()
             err = (got - want).abs().max().item()
             rms = (got - want).square().mean().sqrt().item()
             ref_max = want.abs().max().item()
             ok, tol = _within(err, ref_max, dtype, torch)
-            ok = ok and bool(torch.isfinite(got).all())
+            ok = ok and bool(torch.isfinite(got).all()) and repeat is not False
             del got, want
             by_bytes = case['bytes'] / HBM_BYTES_PER_S * 1e3
             by_ops = (case['flops']
@@ -368,6 +374,7 @@ def phase_kernels(torch, device, *, b=8, lin_shapes=LINATTN_SHAPES,
             cases.append({
                 'kernel': kind, **shape, 'b': batch, 'dtype': name,
                 'max_abs_err': err, 'rms_err': rms, 'tol': tol, 'ok': ok,
+                'bitwise_repeat': repeat,
                 'ms': time_ms(torch, case['kern'], device, iters, flush),
                 'plain_ms': time_ms(torch, case['plain'], device, iters, flush),
                 'library_ms': (None if library is None else
@@ -674,8 +681,7 @@ DEVICE_KERNELS = {
     'qkv_proj': 'attn_block', 'attend': 'attn_block',
     'qkv_proj_mma': 'attn_block', 'attn_block_flash': 'attn_block',
     'out_proj_mma': 'attn_block',
-    'gn_stats': 'groupnorm_silu', 'gn_fold': 'groupnorm_silu',
-    'gn_apply': 'groupnorm_silu', 'flash': 'attention',
+    'groupnorm_silu_fused': 'groupnorm_silu', 'flash': 'attention',
     'flash_mma': 'attention', 'kv_partials': 'linear_attention_qkv',
     'out_rows': 'linear_attention_qkv',
     'kv_partials_mma': 'linear_attention_qkv',
@@ -716,14 +722,30 @@ def _by_function(rows) -> dict:
     return out
 
 
+def _owner(fn: str, merge_owner: str):
+    """The port's kernel a device kernel belongs to, or None; the partial
+    merge that two of them share goes to ``merge_owner``, the one the
+    profiled net routes to."""
+    return merge_owner if fn == 'merge_kv_partials' else DEVICE_KERNELS.get(fn)
+
+
+def _launches_by_kernel(rows, merge_owner: str) -> dict:
+    """Device kernels per call (per forward) of each of the port's kernels."""
+    out = {}
+    for _, calls, key in rows:
+        owner = _owner(_function(key), merge_owner)
+        if owner is not None:
+            out[owner] = out.get(owner, 0) + calls
+    return out
+
+
 def _by_kernel(rows, merge_owner: str) -> dict:
     """ms per call of each of the port's kernels, summed over its device
-    kernels by function name; the partial merge that two of them share goes
-    to ``merge_owner``, the one the profiled net routes to."""
+    kernels by function name."""
     out = {}
     for ms, calls, key in rows:
         fn = _function(key)
-        owner = merge_owner if fn == 'merge_kv_partials' else DEVICE_KERNELS.get(fn)
+        owner = _owner(fn, merge_owner)
         if owner is not None:
             entry = out.setdefault(owner, {'ms': 0.0, 'device_kernels': {}})
             entry['ms'] += ms
@@ -761,24 +783,30 @@ def _by_group(rows) -> dict:
 
 def phase_profile(torch, device, *, tile_size=256, batch_size=8, seed=0,
                   forwards=3, top=24, lin_shapes=LINATTN_SHAPES,
-                  attn_shapes=ATTN_SHAPES, linear_shapes=LINEAR_SHAPES,
-                  flash_shapes=FLASH_SHAPES, **net_kw):
+                  attn_shapes=ATTN_SHAPES, gn_shapes=GN_SHAPES,
+                  linear_shapes=LINEAR_SHAPES, flash_shapes=FLASH_SHAPES,
+                  **net_kw):
     """``torch.profiler`` over ``forwards`` U-Net forwards of the default and
     of the ``use_pallas`` net (b = 8 tiles of 256 px, bf16): self device time
     per kernel name, in ms per forward, largest first, with the sum over all
     kernels beside the host-clock time of a forward, ``by_kernel``: each of
     the port's kernels' time per forward summed over all its launches and
-    shapes, and ``by_group``: every device kernel's time by what it does. A
-    bfloat16 net must spend no time in the float32 device kernels.
-    Then ``standalone``: the device time (no host latency, L2 warm) of one
-    call of the four tensor-core kernels at the flagship shapes,
-    ``attention`` beside ``F.scaled_dot_product_attention``, and of the two
-    kernels of three launches by device kernel. Not
-    part of the default run: ``python3 chip_smoke.py --profile`` adds it."""
+    shapes, ``device_launches_per_forward``: each of the port's kernels'
+    device kernels per forward, and ``by_group``: every device kernel's time
+    by what it does. A bfloat16 net must spend no time in the float32 device
+    kernels. Then ``standalone``: the device time (no host latency, L2 warm)
+    of one call of the four tensor-core kernels and of ``groupnorm_silu``
+    (with FiLM) at the flagship shapes, ``attention`` beside
+    ``F.scaled_dot_product_attention``, of ``attn_block``,
+    ``linear_attention_qkv`` and ``groupnorm_silu`` by device kernel, and
+    their ``standalone_device_kernels_per_call``, which must be 1 for
+    ``groupnorm_silu``. Not part of the default run: ``python3 chip_smoke.py
+    --profile`` adds it."""
     import torch.nn.functional as F
 
     from srgd_tpu_torch.kernels import attention as at
     from srgd_tpu_torch.kernels import attn_block as ab
+    from srgd_tpu_torch.kernels import groupnorm_silu as gs
     from srgd_tpu_torch.kernels import linattn_block as lb
     from srgd_tpu_torch.kernels import linear_attention as la
     on_card = device.type == 'cuda'
@@ -813,6 +841,8 @@ def phase_profile(torch, device, *, tile_size=256, batch_size=8, seed=0,
             'host_ms_per_forward': host_ms,
             'kernel_ms_per_forward': sum(r[0] for r in rows),
             'by_kernel': by_kernel,
+            'device_launches_per_forward': _launches_by_kernel(rows,
+                                                               merge_owner),
             'by_group': _by_group(rows),
             'ms_in_float32_kernels': f32_ms,
             'top': [{'ms': ms, 'calls': calls, 'name': key[:200]}
@@ -833,12 +863,14 @@ def phase_profile(torch, device, *, tile_size=256, batch_size=8, seed=0,
         return sum(r[0] for r in device_rows(fn))
 
     def device_split(name, fn):
-        """The call's device time, and by device kernel in ``split``."""
+        """The call's device time, by device kernel in ``split``, and the
+        device kernels it launched in ``per_call``."""
         rows = device_rows(fn)
         standalone[name] = sum(r[0] for r in rows)
         split[name] = _by_function(rows)
+        per_call[name] = sum(r[1] for r in rows)
 
-    standalone, split = {}, {}
+    standalone, split, per_call = {}, {}, {}
     for n, c in lin_shapes:
         xs = torch.randn((batch_size, n, c), generator=gen,
                          device=device).to(torch.bfloat16)
@@ -871,9 +903,21 @@ def phase_profile(torch, device, *, tile_size=256, batch_size=8, seed=0,
         standalone[f'attention_{n}'] = device_ms(lambda: at.attention(q, k, v))
         standalone[f'sdpa_{n}'] = device_ms(
             lambda: F.scaled_dot_product_attention(q, k, v))
+    for rows, c in gn_shapes:
+        xs = torch.randn((batch_size, rows, c), generator=gen,
+                         device=device).to(torch.bfloat16)
+        film = torch.randn((batch_size, 2, c), generator=gen,
+                           device=device) * 0.2
+        g, z = torch.ones(c, device=device), torch.zeros(c, device=device)
+        name = f'groupnorm_silu_{rows}_{c}'
+        device_split(name, lambda: gs.groupnorm_silu(xs, g, z, film))
     res['standalone_device_ms'] = standalone
     res['standalone_by_device_kernel'] = split
-    res['ok'] = ok
+    res['standalone_device_kernels_per_call'] = per_call
+    # one device kernel a groupnorm_silu call (the CPU runs plain ops)
+    res['ok'] = ok and (not on_card or all(
+        n == 1 for name, n in per_call.items()
+        if name.startswith('groupnorm_silu')))
     return res
 
 

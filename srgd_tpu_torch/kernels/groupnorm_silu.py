@@ -5,15 +5,19 @@ Replaces the Pallas TPU kernel ``srgd_tpu/kernels/groupnorm_silu.py``
 ``srgd_tpu_torch/csrc/groupnorm_silu.cu``.
 
 What bounds it on the H100: memory. There is no product: the function reads
-x and writes an output of the same size, and the kernel reads x a second
-time (statistics, then normalise). The chain it replaces in ``Block``
+x and writes an output of the same size. The chain it replaces in ``Block``
 (float32 ``F.group_norm`` behind a cast and a layout copy, FiLM, SiLU, the
 cast back) moves the activation through device memory many more times. What
-the design does about it: 16-byte loads over consecutive channels of the
-channels-last activation, per-block partial sums folded in a fixed order (no
-atomics, so the result does not change from run to run), the GroupNorm affine
-and the FiLM merged into one multiply-add per element, and no float32 copy of
-the activation anywhere. Times at the flagship shapes: PERF.md.
+the design does about it: one launch of persistent blocks that take
+statistics and apply tiles by ticket in one fixed order (``_item``), so a
+sample's apply follows its own statistics while its x is still in the L2;
+the fold into one (scale, shift) per (sample, channel) inside the kernel, by
+the block that retires the sample's last statistics tile, adding the
+partials in tile order (no float atomics, so the result does not change from
+run to run); 16-byte loads over consecutive channels of the channels-last
+activation; no float32 copy of the activation anywhere. The kernel's
+counters live in a small buffer per device and stream (``_state``), zeroed
+once and left zero by every call. Times at the flagship shapes: PERF.md.
 """
 
 from __future__ import annotations
@@ -24,8 +28,15 @@ from srgd_tpu_torch.kernels import _build
 
 launches = 0   # kernel launches through groupnorm_silu (never the plain version)
 
-TARGET_BLOCKS = 1056   # statistics blocks to aim for: eight per SM of an H100
-MIN_CHUNK_ROWS = 64    # a statistics block reads at least this many rows
+TILE_BYTES = 64 << 10  # bytes of x a work item reads, at most
+MIN_TILE_ROWS = 16     # a work item covers at least this many rows (bytes allowing)
+BLOCKS_PER_SM = 2      # persistent blocks of 256 threads on each SM
+QUEUE = 2              # tickets a block holds: its item and the next
+L2_BYTES = 40 << 20    # x the apply may trail the statistics by, at most
+STATE_CAP = 64         # samples the counters of a stream hold at first
+
+_SMS: dict = {}        # device index -> SM count
+_STATE: dict = {}      # (device index, stream) -> [counters, generation, cap]
 
 
 def groupnorm_silu_plain(x, gamma, beta, film=None, *, groups: int = 8,
@@ -52,12 +63,66 @@ def groupnorm_silu_plain(x, gamma, beta, film=None, *, groups: int = 8,
     return (y * torch.sigmoid(y)).to(x.dtype).reshape(x.shape)
 
 
-def _chunks(b: int, rows: int) -> tuple[int, int]:
-    """(rows_per_chunk, nchunk) of the statistics pass: about TARGET_BLOCKS
-    blocks over b * nchunk, none shorter than MIN_CHUNK_ROWS."""
-    nchunk = max(1, min(-(-rows // MIN_CHUNK_ROWS), -(-TARGET_BLOCKS // b)))
-    per = -(-rows // nchunk)
-    return per, -(-rows // per)
+def _item(t: int, b: int, ntile: int, lead: int) -> tuple[int, int, int]:
+    """(apply, sample, tile) of ticket t: the kernel's ``item_of``. The
+    statistics tiles S_i and the apply tiles A_i are numbered over all
+    samples (i = sample * ntile + tile); the order is S_0 .. S_{lead-1}, then
+    A_0, S_lead, A_1, S_{lead+1}, ... in turns until the S_i run out, then
+    the remaining A_i."""
+    ns = b * ntile
+    if t < lead:
+        apply, i = 0, t
+    else:
+        j, m = t - lead, ns - lead
+        if j < 2 * m:
+            apply = 1 - j % 2
+            i = j // 2 if apply else lead + j // 2
+        else:
+            apply, i = 1, j - m
+    return apply, i // ntile, i % ntile
+
+
+def _plan(b: int, rows: int, c: int, itemsize: int,
+          sms: int) -> tuple[int, int, int, int]:
+    """(tile_rows, ntile, lead, grid) of one call: tiles of at most
+    TILE_BYTES, at least enough of them for every block of the grid
+    (BLOCKS_PER_SM an SM), none shorter than MIN_TILE_ROWS where the bytes
+    allow; the apply tiles trail the statistics tiles by ``lead``."""
+    cap = sms * BLOCKS_PER_SM
+    max_rows = max(1, TILE_BYTES // (c * itemsize))
+    ntile = max(-(-rows // max_rows), -(-cap // b))
+    ntile = min(ntile, -(-rows // min(MIN_TILE_ROWS, max_rows)))
+    tile_rows = -(-rows // ntile)
+    ntile = -(-rows // tile_rows)
+    grid = min(2 * b * ntile, cap)
+    # apply tiles trail the statistics by at least a sample (the order's
+    # condition), by the tickets the grid holds and two rounds more where the
+    # L2 allows, and never by more than all the statistics tiles
+    in_flight = grid * (QUEUE + 2)
+    in_l2 = L2_BYTES // (tile_rows * c * itemsize)
+    lead = min(b * ntile, max(ntile, min(in_flight, in_l2)))
+    return tile_rows, ntile, lead, grid
+
+
+def _sms(dev) -> int:
+    if dev.index not in _SMS:
+        _SMS[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return _SMS[dev.index]
+
+
+def _state(dev, stream: int, b: int):
+    """(state, generation, cap): the kernel's counters for this device and
+    stream, zeroed once (grown when b outgrows them) and left zero by every
+    call, and this call's generation number, never the previous one's."""
+    entry = _STATE.get((dev.index, stream))
+    if entry is None or entry[2] < b:
+        cap = max(b, STATE_CAP)
+        entry = [torch.zeros(2 + 2 * cap, dtype=torch.int32, device=dev), 0,
+                 cap]
+        _STATE[(dev.index, stream)] = entry
+    entry[1] = entry[1] % (2 ** 31 - 2) + 1
+    return entry
 
 
 def _launch(x, gamma, beta, film, groups, eps):
@@ -85,15 +150,23 @@ def _launch(x, gamma, beta, film, groups, eps):
     for t in (gamma, beta):
         if t.device != dev or t.shape != (c,):
             raise ValueError('gamma and beta must be (c,) on the device of x')
-    film_ptr = None
+    film_ptr, film_bf16 = None, 0
     if film is not None:
-        film = film.float().contiguous()
         if film.device != dev or film.shape != (b, 2, c):
             raise ValueError('film must be (b, 2, c) on the device of x')
-        film_ptr = film.data_ptr()
+        if film.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f'groupnorm_silu film takes float32 or bfloat16, '
+                            f'got {film.dtype}')
+        if not film.is_contiguous():
+            raise ValueError('groupnorm_silu needs film contiguous; it does '
+                             'not copy')
+        film_ptr, film_bf16 = film.data_ptr(), int(film.dtype == torch.bfloat16)
 
-    per, nchunk = _chunks(b, rows)
-    part = torch.empty((b, nchunk, 2, c), device=dev, dtype=torch.float32)
+    tile_rows, ntile, lead, grid = _plan(b, rows, c, x.element_size(),
+                                         _sms(dev))
+    if 2 * b * ntile >= 2 ** 31:
+        raise ValueError(f'groupnorm_silu: batch {b} too large')
+    part = torch.empty((b, ntile, 2, groups), device=dev, dtype=torch.float32)
     ss = torch.empty((b, 2, c), device=dev, dtype=torch.float32)
     out = torch.empty_like(x)
     vec = 8 if x.dtype == torch.bfloat16 else 4
@@ -101,12 +174,14 @@ def _launch(x, gamma, beta, film, groups, eps):
                      and out.data_ptr() % 16 == 0)
     name = ('srgd_groupnorm_silu_bf16' if x.dtype == torch.bfloat16
             else 'srgd_groupnorm_silu_f32')
-    fn = _build.entry(name, 7, 7, 1)
+    fn = _build.entry(name, 8, 12, 1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        state, gen, cap = _state(dev, stream, b)
         err = fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), film_ptr,
-                 part.data_ptr(), ss.data_ptr(), out.data_ptr(), b, rows, c,
-                 groups, per, nchunk, vectorised, eps, stream)
+                 part.data_ptr(), ss.data_ptr(), out.data_ptr(),
+                 state.data_ptr(), b, rows, c, groups, tile_rows, ntile, lead,
+                 grid, gen, cap, film_bf16, vectorised, eps, stream)
     _build.check(err, name)
     launches += 1
     return out

@@ -89,6 +89,39 @@ def test_groupnorm_silu_scalar_path_and_no_film(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('b', [1, 16])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_groupnorm_silu_ragged_rows_repeat_bitwise(cuda_device, dtype, b):
+    """Rows that are no multiple of the tile, at b = 1 (one sample: the
+    apply waits on the whole statistics) and b = 16: inside the kernel
+    tolerances, and a second call on the same inputs gives the same bits.
+    A bfloat16 FiLM is read in its own dtype and gives the bits of the same
+    values in float32."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    for rows, c in ((4096 + 40, 256), (1000, 128), (65536 + 8, 128)):
+        x = (torch.randn(b, rows, c, generator=g, device=cuda_device) * 1.5
+             + 0.3).to(dtype)
+        gamma = 1 + 0.1 * torch.randn(c, generator=g, device=cuda_device)
+        beta = 0.1 * torch.randn(c, generator=g, device=cuda_device)
+        film = (0.2 * torch.randn(b, 2, c, generator=g, device=cuda_device)
+                ).to(torch.bfloat16)
+        tile_rows, ntile, _, _ = gs._plan(b, rows, c, x.element_size(),
+                                          gs._sms(cuda_device))
+        assert ntile > 1 and rows % tile_rows
+        got = gs.groupnorm_silu(x, gamma, beta, film)
+        again = gs.groupnorm_silu(x, gamma, beta, film)
+        f32_film = gs.groupnorm_silu(x, gamma, beta, film.float())
+        want = gs.groupnorm_silu_plain(x, gamma, beta, film)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again) and torch.equal(got, f32_film)
+        ref_max = want.float().abs().max().item()
+        ok, tol = chip_smoke._within(
+            (got.float() - want.float()).abs().max().item(), ref_max, dtype,
+            torch)
+        assert ok, (rows, c, tol)
+
+
+@pytest.mark.cuda
 def test_each_new_wrapper_counts_one_launch(cuda_device):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     x = torch.randn(2, 64, 128, generator=g, device=cuda_device)
@@ -141,6 +174,12 @@ def test_new_kernels_raise_on_what_they_do_not_take(cuda_device):
         gs.groupnorm_silu(x, ones, ones, groups=7)
     with pytest.raises(ValueError, match=r'film must be \(b, 2, c\)'):
         gs.groupnorm_silu(x, ones, ones, torch.zeros(2, 128, device=cuda_device))
+    with pytest.raises(TypeError, match='film takes float32 or bfloat16'):
+        gs.groupnorm_silu(x, ones, ones,
+                          torch.zeros(2, 2, 128, device=cuda_device).half())
+    with pytest.raises(ValueError, match='film contiguous'):
+        gs.groupnorm_silu(x, ones, ones, torch.zeros(
+            2, 128, 2, device=cuda_device).transpose(1, 2))
     q = torch.zeros(2, 4, 64, 16, device=cuda_device)
     with pytest.raises(ValueError, match='d = 32'):
         at.attention(q, q, q)

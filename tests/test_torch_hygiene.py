@@ -43,6 +43,7 @@ bench = chip_smoke.phase_bench(torch, cpu, lr_size=10, tile_size=32,
 profile = chip_smoke.phase_profile(torch, cpu, tile_size=32, batch_size=2,
                                    forwards=1, top=3, lin_shapes=((70, 32),),
                                    attn_shapes=((70, 64),),
+                                   gn_shapes=((70, 32),),
                                    linear_shapes=(70,), flash_shapes=(70,),
                                    **net)
 def foreign():
@@ -63,8 +64,8 @@ print(json.dumps({
     'ok': [kernels['ok'], slice_['ok'], slice_pallas['ok'], bench['ok'],
            profile['ok']],
     'slice': slice_, 'slice_pallas': slice_pallas, 'bench': bench,
-    'kernel_cases': [[c['kernel'], c['b'], c.get('film'), c['dtype'], c['n']]
-                     for c in kernels['cases']],
+    'kernel_cases': [[c['kernel'], c['b'], c.get('film'), c['dtype'], c['n'],
+                      c['bitwise_repeat']] for c in kernels['cases']],
     'profile': profile,
     'summary': chip_smoke.summary(kernels, slice_, slice_pallas)}))
 """
@@ -161,6 +162,10 @@ def test_rehearsed_kernel_cases_cover_film_and_the_cfg_batch(rehearsal):
     gn = [c for c in cases if c[0] == 'groupnorm_silu']
     assert {(c[1], c[2]) for c in gn} == {(2, True), (2, False), (4, True),
                                           (4, False)}
+    # groupnorm_silu is called twice on the same inputs and must repeat its
+    # bits; the other kernels are not asked
+    assert all(c[5] is True for c in gn)
+    assert all(c[5] is None for c in cases if c[0] != 'groupnorm_silu')
 
 
 def test_chip_smoke_without_a_card_fails():
@@ -185,7 +190,7 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
 
 
 def _port_sources():
-    files = [os.path.join(REPO, 'chip_smoke.py')]
+    files = [os.path.join(REPO, f) for f in ('chip_smoke.py', 'kernel_ab.py')]
     for root, _, names in os.walk(os.path.join(REPO, 'srgd_tpu_torch')):
         files += [os.path.join(root, n) for n in names if n.endswith('.py')]
     return sorted(files)
@@ -307,10 +312,15 @@ def test_rehearsed_profile_sums_each_kernel_and_times_single_calls(rehearsal):
                    - net['kernel_ms_per_forward']) < 1e-6
     assert set(prof['standalone_device_ms']) == {
         'linattn_block_70_32', 'attn_block_70_64', 'linear_attention_qkv_70',
-        'attention_70', 'sdpa_70'}
+        'attention_70', 'sdpa_70', 'groupnorm_silu_70_32'}
     assert all(v > 0 for v in prof['standalone_device_ms'].values())
     split = prof['standalone_by_device_kernel']
-    assert set(split) == {'attn_block_70_64', 'linear_attention_qkv_70'}
+    assert set(split) == {'attn_block_70_64', 'linear_attention_qkv_70',
+                          'groupnorm_silu_70_32'}
+    # counted on the card; the CPU's plain versions are several ops
+    assert set(prof['standalone_device_kernels_per_call']) == set(split)
+    for net in prof['nets'].values():
+        assert net['device_launches_per_forward'] == {}
     for name, by_fn in split.items():
         assert abs(sum(by_fn.values())
                    - prof['standalone_device_ms'][name]) < 1e-9
@@ -331,6 +341,39 @@ def test_profile_attributes_device_kernels_to_the_ports_kernels():
     assert chip_smoke._by_kernel(rows[2:3], 'linear_attention_qkv') == {
         'linear_attention_qkv': {'ms': 0.5,
                                  'device_kernels': {'merge_kv_partials': 0.5}}}
+
+
+def test_kernel_ab_variants_and_shapes():
+    """kernel_ab.py's variants set attributes of the kernel's wrapper
+    module by JSON value, and every kernel it takes names a wrapper module
+    and a shape argument of chip_smoke.phase_kernels."""
+    import inspect
+
+    import chip_smoke
+    import kernel_ab
+    assert kernel_ab.parse_variant('t32:TILE_BYTES=32768,L2_BYTES=0') == (
+        't32', {'TILE_BYTES': 32768, 'L2_BYTES': 0})
+    assert kernel_ab.parse_variant('plain:') == ('plain', {})
+    params = inspect.signature(chip_smoke.phase_kernels).parameters
+    for kernel, (module, arg) in kernel_ab.SHAPES.items():
+        assert kernel in chip_smoke.KERNELS and arg in params
+        assert os.path.exists(os.path.join(
+            REPO, 'srgd_tpu_torch', 'kernels', module + '.py'))
+
+
+def test_profile_counts_device_kernels_per_forward():
+    """One ``groupnorm_silu_fused`` a Block: 38 device kernels of
+    ``groupnorm_silu`` in a flagship forward; the shared merge goes to the
+    kernel the net routes to; PyTorch's own kernels are not counted."""
+    import chip_smoke
+    rows = [(1.5, 38, 'void (anonymous namespace)::groupnorm_silu_fused<__nv_bfloat16, 8>(int)'),
+            (0.3, 6, 'void (anonymous namespace)::kv_partials_mma<8>(int)'),
+            (0.1, 6, 'void srgd::merge_kv_partials<__nv_bfloat16>(float const*)'),
+            (9.0, 40, 'void at::native::vectorized_elementwise_kernel<4>(int)')]
+    assert chip_smoke._launches_by_kernel(rows, 'linear_attention_qkv') == {
+        'groupnorm_silu': 38, 'linear_attention_qkv': 12}
+    assert chip_smoke.DEVICE_KERNELS['groupnorm_silu_fused'] == 'groupnorm_silu'
+    assert not {'gn_stats', 'gn_fold', 'gn_apply'} & set(chip_smoke.DEVICE_KERNELS)
 
 
 def test_profile_groups_every_device_kernel_once():

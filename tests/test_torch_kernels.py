@@ -195,10 +195,61 @@ def test_wrappers_route_by_device():
             la.launches_qkv) == before
 
 
-def test_groupnorm_chunks_cover_every_row():
-    for b, rows in ((8, 65536), (16, 1024), (1, 1000), (2, 63), (3, 65)):
-        per, nchunk = gs._chunks(b, rows)
-        assert (nchunk - 1) * per < rows <= nchunk * per
+# (rows, c) of the flagship's Blocks (chip_smoke.GN_SHAPES) and ragged rows
+GN_PLAN_SHAPES = ((65536, 128), (16384, 128), (16384, 256), (4096, 256),
+                  (4096, 512), (1024, 512), (1024, 1024), (1000, 24),
+                  (4136, 256), (63, 1024), (1, 32))
+
+
+@pytest.mark.parametrize('b', [1, 8, 16])
+@pytest.mark.parametrize('rows,c', GN_PLAN_SHAPES)
+def test_groupnorm_plan_covers_every_row_and_cannot_deadlock(b, rows, c):
+    """The kernel's work plan on an H100 (132 SMs), bf16: every row of every
+    sample is covered once by a statistics tile and once by an apply tile;
+    every apply ticket of a sample comes after all its statistics tickets;
+    and a model of the persistent blocks (each holds its current item and
+    the next tickets it drew, ``QUEUE`` in all; an apply item finishes only
+    once its sample's statistics are all done) runs every item to the end."""
+    tile_rows, ntile, lead, grid = gs._plan(b, rows, c, 2, 132)
+    assert (ntile - 1) * tile_rows < rows <= ntile * tile_rows
+    assert tile_rows * c * 2 <= gs.TILE_BYTES
+    assert ntile <= lead <= b * ntile and 1 <= grid <= 2 * b * ntile
+    items = [gs._item(t, b, ntile, lead) for t in range(2 * b * ntile)]
+    assert sorted(items) == [(k, s, t) for k in (0, 1) for s in range(b)
+                             for t in range(ntile)]
+    last_stats = {s: max(i for i, (k, s2, _) in enumerate(items)
+                         if k == 0 and s2 == s) for s in range(b)}
+    first_apply = {s: min(i for i, (k, s2, _) in enumerate(items)
+                          if k == 1 and s2 == s) for s in range(b)}
+    assert all(last_stats[s] < first_apply[s] for s in range(b))
+    # persistent blocks: a statistics item finishes in a step, an apply item
+    # only once its sample's statistics have all finished
+    total, nxt = len(items), 0
+    held = []
+    for _ in range(grid):
+        held.append(list(range(nxt, nxt + gs.QUEUE)))
+        nxt += gs.QUEUE
+    stats_left = [ntile] * b
+    done = 0
+    while held:
+        progressed = False
+        for block in list(held):
+            cur = block[0]
+            if cur >= total:
+                held.remove(block)
+                progressed = True
+                continue
+            kind, s, _ = items[cur]
+            if kind == 1 and stats_left[s]:
+                continue
+            if kind == 0:
+                stats_left[s] -= 1
+            done += 1
+            block[:] = block[1:] + [nxt]
+            nxt += 1
+            progressed = True
+        assert progressed, 'the blocks wait on each other'
+    assert done == total
 
 
 @pytest.mark.parametrize('b,n', [
