@@ -41,10 +41,24 @@ Phases, each printed as one JSON line:
    [0, 1]; and the separate-q-k-v entry ``linear_attention``, which no module
    calls, is driven once on a stage-0 projection and must equal the packed
    entry bit for bit (``drive_launches`` in the summary, not ``launches``).
-6. bench: one U-Net forward (b = 8 tiles of 256 px) and one even and one odd
+6. deep_cache: DeepCache at depth 2 through both nets. One full forward with
+   ``return_cache`` and one forward on that cache (b = 8 tiles) must agree
+   within the bf16 kernel bound (whether their bits matched is printed), the
+   full forward must launch what the net routes to (default 6 / 3,
+   ``use_pallas`` 38 / 6 / 3) and the cached one what its two shallow stages
+   and the final block route to (4 / 0 and 18 / 4 / 0); a tiled ancestral run
+   with class CFG at interval 2 (4 steps on the 768 canvas) must run the full
+   and cached forwards ``refresh_mask`` gives, each with its launches, and
+   pass the output checks; and the ms of a full and of a cached forward.
+7. families: the shipped YAML with ``model`` set, on the default net with
+   class CFG: ``conditional_gaussian`` (``learned_sinusoidal_cond: false``)
+   through tiled DDIM, ``conditional_elucidated`` through tiled Heun and
+   untiled DPM++ on one 256 tile, and the continuous family on the learned
+   log-SNR schedule; the output checks, and 6 / 3 launches every forward.
+8. bench: one U-Net forward (b = 8 tiles of 256 px) and one even and one odd
    step of a 512-px LR input (2304 canvas), for the default net and for the
    ``use_pallas`` net.
-7. profile, only with ``--profile``: ``torch.profiler`` over three forwards of
+9. profile, only with ``--profile``: ``torch.profiler`` over three forwards of
    each net, device time per kernel name, per kernel of the port (summed
    over all its launches and shapes, and its device kernels per forward)
    and per group of PyTorch's own kernels, and the device time of single
@@ -388,7 +402,8 @@ def phase_kernels(torch, device, *, b=8, lin_shapes=LINATTN_SHAPES,
 
 def build_flagship(torch, device, *, dim=128, dim_mults=(1, 2, 4, 8),
                    full_attn=(False, False, False, True), seed=0,
-                   sampler='ancestral', ddim_eta=0.0, **flags):
+                   sampler='ancestral', ddim_eta=0.0, deep_cache_interval=0,
+                   deep_cache_depth=2, **flags):
     """The shipped config's net (conf/...dim128.yaml and Config defaults) and
     its continuous-time wrapper, with weights drawn from a seed, bf16.
     ``flags``: the U-Net's kernel flags."""
@@ -400,20 +415,39 @@ def build_flagship(torch, device, *, dim=128, dim_mults=(1, 2, 4, 8),
     net.init_weights(torch.Generator(device='cpu').manual_seed(seed))
     return ContinuousDiffusion(net, image_size=256, noise_schedule='linear',
                                num_sample_steps=250, sampler=sampler,
-                               ddim_eta=ddim_eta)
+                               ddim_eta=ddim_eta,
+                               deep_cache_interval=deep_cache_interval,
+                               deep_cache_depth=deep_cache_depth)
 
 
-def _expected_launches(net, forwards: int) -> tuple[dict, dict]:
-    """Launches of each kernel that ``forwards`` U-Net forwards of ``net``
-    make, and that one forward makes: one per module that routes to it."""
+SHIPPED_YAML = 'conf/conditional_continuous_linear_df8kost_dim128.yaml'
+
+
+def build_family(torch, device, model, *, seed=0, **overrides):
+    """The shipped YAML with ``model`` and ``overrides`` (Config fields)
+    set, through the port's factory: random weights from ``seed``, bf16."""
+    import os
+
+    from srgd_tpu_torch.config import load_config
+    from srgd_tpu_torch.factory import get_model
+    conf = load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                    SHIPPED_YAML))
+    conf.model, conf.seed, conf.compute_dtype = model, seed, 'bfloat16'
+    for key, value in overrides.items():
+        setattr(conf, key, value)
+    return get_model(conf, ckpt_path='', device=device)[0]
+
+
+def _per_forward(mods) -> dict:
+    """Launches of each kernel that one pass through the modules ``mods``
+    makes: one per module that routes to it."""
     from srgd_tpu_torch.nn.layers import Attention, Block, LinearAttention
-    mods = list(net.modules())
     blocks = [m for m in mods if isinstance(m, Block)]
     linear = [m for m in mods if isinstance(m, LinearAttention)]
     full = [m for m in mods if isinstance(m, Attention)]
     # bf16 with `fused` keeps the whole-block kernel under use_pallas
     to_flash = [m for m in full if m.use_pallas and not m.fused]
-    per_forward = {
+    return {
         'linattn_block': sum(not m.use_pallas for m in linear),
         'attn_block': len(full) - len(to_flash),
         'groupnorm_silu': sum(m.use_pallas for m in blocks),
@@ -421,42 +455,75 @@ def _expected_launches(net, forwards: int) -> tuple[dict, dict]:
         'linear_attention': 0,
         'linear_attention_qkv': sum(m.use_pallas for m in linear),
     }
-    return {k: v * forwards for k, v in per_forward.items()}, per_forward
 
 
-def _sample_counted(torch, device, wrapper, cond, label, *, steps, tile_size,
-                    batch_size, noise_seed, start=0):
-    """One tiled class-CFG sampling run (steps ``start`` .. ``steps`` - 1 of
-    ``steps``) with the launch counts set to 0 just before and read just
-    after. Returns (out, forwards, launches, seconds)."""
-    from srgd_tpu_torch.diffusion.continuous import GeneratorNoise
-    forwards = 0
+def _cached_per_forward(net, depth: int) -> dict:
+    """Launches of a DeepCache forward at ``depth``: the encoder and decoder
+    stages below it and the final block; no mid block."""
+    stages = len(net.downs)
+    mods = [m for part in (*net.downs[:depth], *net.ups[stages - depth:],
+                           net.final_res_block) for m in part.modules()]
+    return _per_forward(mods)
+
+
+def _expected_launches(net, forwards: int, cached: int = 0,
+                       depth: int = 0) -> tuple[dict, dict]:
+    """Launches of each kernel that ``forwards`` U-Net forwards of ``net``,
+    ``cached`` of them DeepCache forwards at ``depth``, make, and that one
+    full forward makes."""
+    per_forward = _per_forward(list(net.modules()))
+    per_cached = _cached_per_forward(net, depth) if cached else per_forward
+    return {k: v * (forwards - cached) + per_cached[k] * cached
+            for k, v in per_forward.items()}, per_forward
+
+
+def _counted(torch, device, wrapper, run):
+    """``run()`` with the launch counts set to 0 just before and read just
+    after, and the U-Net forwards counted, those on a DeepCache cache apart.
+    Returns (out, forwards, cached_forwards, launches, seconds)."""
+    forwards = cached = 0
     net_forward = wrapper.net.forward
 
     def counted(*a, **k):
-        nonlocal forwards
+        nonlocal forwards, cached
         forwards += 1
+        cached += k.get('deep_cache') is not None
         return net_forward(*a, **k)
 
     wrapper.net.forward = counted
     reset_counts()
     t0 = time.perf_counter()
-    out = wrapper.tiled_sample(
-        cond, label, batch_size=batch_size, tile_size=tile_size,
-        class_cond_scale=2.0, num_sample_steps=steps,
-        generation_start_steps=start, noise=GeneratorNoise(noise_seed, device))
-    if device.type == 'cuda':
-        torch.cuda.synchronize()
+    try:
+        out = run()
+        if device.type == 'cuda':
+            torch.cuda.synchronize()
+    finally:
+        wrapper.net.forward = net_forward
     seconds = time.perf_counter() - t0
-    launches = read_counts()
-    wrapper.net.forward = net_forward
+    return out, forwards, cached, read_counts(), seconds
+
+
+def _sample_counted(torch, device, wrapper, cond, label, *, steps, tile_size,
+                    batch_size, noise_seed, start=0):
+    """One tiled class-CFG sampling run (steps ``start`` .. ``steps`` - 1 of
+    ``steps``) through ``_counted``. Returns (out, forwards, launches,
+    seconds); DeepCache forwards are counted by ``_counted`` itself."""
+    from srgd_tpu_torch.diffusion.base import GeneratorNoise
+    out, forwards, _, launches, seconds = _counted(
+        torch, device, wrapper, lambda: wrapper.tiled_sample(
+            cond, label, batch_size=batch_size, tile_size=tile_size,
+            class_cond_scale=2.0, num_sample_steps=steps,
+            generation_start_steps=start,
+            noise=GeneratorNoise(noise_seed, device)))
     return out, forwards, launches, seconds
 
 
-def _slice_checks(torch, device, wrapper, out, size, forwards, launches):
+def _slice_checks(torch, device, wrapper, out, size, forwards, launches,
+                  cached=0, depth=0):
     # a CPU rehearsal runs the plain versions, which never count
+    on_card = device.type == 'cuda'
     expected, per_forward = _expected_launches(
-        wrapper.net, forwards if device.type == 'cuda' else 0)
+        wrapper.net, forwards * on_card, cached * on_card, depth)
     checks = {
         'shape': list(out.shape) == [1, size, size, 3],
         'finite': bool(torch.isfinite(out).all()),
@@ -466,6 +533,18 @@ def _slice_checks(torch, device, wrapper, out, size, forwards, launches):
     for name in KERNELS:
         checks[f'{name}_launches'] = launches[name] == expected[name]
     return checks, per_forward
+
+
+def _forward_inputs(torch, device, batch_size, tile_size, seed):
+    """(x, t, the forward's keywords) of one U-Net forward on a tile batch,
+    from a seeded generator."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tile = (batch_size, 3, tile_size, tile_size)
+    fwd = dict(cond=torch.rand(tile, generator=gen, device=device) * 2 - 1,
+               class_label=torch.arange(batch_size, device=device) % 3)
+    x = torch.randn(tile, generator=gen, device=device)
+    t = torch.rand(batch_size, generator=gen, device=device)
+    return x, t, fwd
 
 
 def _slice_inputs(torch, device, size, seed):
@@ -521,12 +600,7 @@ def phase_slice_pallas(torch, device, *, size=512, tile_size=256, steps=4,
     # weights it amplifies that rounding difference past the clamp: the
     # sampled outputs' difference is reported, not checked.
     default = build_flagship(torch, device, seed=seed, **ddim, **net_kw)
-    gen = torch.Generator(device=device).manual_seed(seed + 5)
-    tile = (batch_size, 3, tile_size, tile_size)
-    fwd = dict(cond=torch.rand(tile, generator=gen, device=device) * 2 - 1,
-               class_label=torch.arange(batch_size, device=device) % 3)
-    x = torch.randn(tile, generator=gen, device=device)
-    t = torch.rand(batch_size, generator=gen, device=device)
+    x, t, fwd = _forward_inputs(torch, device, batch_size, tile_size, seed + 5)
     seen = {}
     hooks = [m.register_forward_hook(
         lambda mod, args, y, name=name: seen.update({name: (args[0], y)}))
@@ -605,13 +679,176 @@ def phase_slice_pallas(torch, device, *, size=512, tile_size=256, steps=4,
             'out_mean': out.mean().item()}
 
 
+def _expected_forwards(size, tile_size, batch_size, steps, mask):
+    """(full, cached) U-Net forwards of a tiled run of ``steps`` steps on a
+    size x size condition: one per tile chunk of the step's grid parity,
+    cached where the per-parity refresh ``mask`` is False."""
+    from srgd_tpu_torch.diffusion.base import pick_chunk
+    from srgd_tpu_torch.tiling import make_geometry
+    geom = make_geometry(size, size, tile_size)
+    chunks = [-(-n // pick_chunk(n, batch_size))
+              for n in (geom.n_tiles_even, geom.n_tiles_odd)]
+    full = sum(chunks[i % 2] for i in range(steps) if mask[i // 2])
+    cached = sum(chunks[i % 2] for i in range(steps) if not mask[i // 2])
+    return full, cached
+
+
+def _launched(torch, device, fn):
+    """(fn(), the launches it made)."""
+    reset_counts()
+    out = fn()
+    if device.type == 'cuda':
+        torch.cuda.synchronize()
+    return out, read_counts()
+
+
+def phase_deep_cache(torch, device, *, size=512, tile_size=256, steps=4,
+                     batch_size=8, depth=2, seed=0, forward_iters=5, **net_kw):
+    """DeepCache at ``depth`` through both kernel sets. For each net: one
+    full forward with ``return_cache`` and one cached forward on that cache
+    (b = ``batch_size`` tiles), held to each other within the bf16 kernel
+    bound, with whether their bits matched, and the launches of each; a
+    tiled ancestral run with class CFG at interval 2 whose full and cached
+    forwards follow ``refresh_mask`` and launch what their stages route to;
+    and the ms of a full and of a cached forward."""
+    from srgd_tpu_torch.diffusion.base import GeneratorNoise, refresh_mask
+    on_card = device.type == 'cuda'
+    cond, label = _slice_inputs(torch, device, size, seed)
+    mask = refresh_mask('', 2, (steps + 1) // 2 + 1)
+    want_forwards = _expected_forwards(size, tile_size, batch_size, steps, mask)
+    res = {'phase': 'deep_cache', 'depth': depth, 'interval': 2,
+           'steps': steps, 'nets': {},
+           'launches': dict.fromkeys(KERNELS, 0)}
+    oks = []
+    for name, flags in (('default', {}), ('use_pallas', PALLAS_FLAGS)):
+        wrapper = build_flagship(torch, device, seed=seed, deep_cache_interval=2,
+                                 deep_cache_depth=depth, **flags, **net_kw)
+        net = wrapper.net
+        x, t, fwd = _forward_inputs(torch, device, batch_size, tile_size,
+                                    seed + 6)
+        with torch.inference_mode():
+            _, full_launches = _launched(
+                torch, device, lambda: net(x, t, **fwd))
+            (out, cache), cache_launches = _launched(
+                torch, device, lambda: net(x, t, **fwd, cache_depth=depth,
+                                           return_cache=True))
+            cached, cached_launches = _launched(
+                torch, device, lambda: net(x, t, **fwd, cache_depth=depth,
+                                           deep_cache=cache))
+        bitwise = bool(torch.equal(out, cached))
+        diff = (out - cached).abs().max().item()
+        tol = BF16_RTOL * out.abs().max().item()
+        per_full = _per_forward(list(net.modules()))
+        per_cached = _cached_per_forward(net, depth)
+        scale = int(on_card)
+        checks = {
+            'fresh_cache_within_bf16_bound': bool(
+                torch.isfinite(cached).all()) and diff <= tol,
+            'full_forward_launches': full_launches == cache_launches == {
+                k: v * scale for k, v in per_full.items()},
+            'cached_forward_launches': cached_launches == {
+                k: v * scale for k, v in per_cached.items()}}
+
+        sampled, forwards, n_cached, launches, seconds = _counted(
+            torch, device, wrapper, lambda: wrapper.tiled_sample(
+                cond, label, batch_size=batch_size, tile_size=tile_size,
+                class_cond_scale=2.0, num_sample_steps=steps,
+                noise=GeneratorNoise(seed + 2, device)))
+        run_checks, _ = _slice_checks(torch, device, wrapper, sampled, size,
+                                      forwards, launches, n_cached, depth)
+        checks.update(run_checks)
+        checks['forwards_follow_refresh_mask'] = (
+            (forwards - n_cached, n_cached) == want_forwards)
+        for k in KERNELS:
+            res['launches'][k] += launches[k]
+
+        def timed(**kw):
+            def run():
+                with torch.inference_mode():
+                    net(x, t, **fwd, **kw)
+            return time_ms(torch, run, device, forward_iters)
+
+        res['nets'][name] = {
+            'ok': all(checks.values()), 'checks': checks,
+            'fresh_cache_bitwise': bitwise, 'fresh_cache_max_abs_diff': diff,
+            'tol': tol, 'cache_shape': list(cache.shape),
+            'per_forward': per_full, 'per_cached_forward': per_cached,
+            'forwards': forwards, 'cached_forwards': n_cached,
+            'expected_forwards': list(want_forwards), 'launches': launches,
+            'seconds': seconds, 'out_mean': sampled.mean().item(),
+            'full_forward_ms': timed(),
+            'cached_forward_ms': timed(cache_depth=depth, deep_cache=cache)}
+        oks.append(res['nets'][name]['ok'])
+        del wrapper, net, cache
+    res['ok'] = all(oks)
+    return res
+
+
+def phase_families(torch, device, *, size=512, tile_size=256, batch_size=8,
+                   seed=0, dpmpp_size=256, **conf_kw):
+    """The other families and the learned schedule, each built from the
+    shipped YAML with ``model`` set (and ``conf_kw``, which the tests use to
+    shrink the net), on the default net with class CFG: tiled DDIM of
+    ``conditional_gaussian`` (4 steps, ``learned_sinusoidal_cond: false``),
+    tiled Heun of ``conditional_elucidated`` (4 steps) and its untiled
+    DPM++ on one ``dpmpp_size`` tile (4 steps), and the continuous family on
+    the learned log-SNR schedule (2 tiled steps). Every forward must launch
+    what the default net routes to; every output must be finite, in [0, 1]
+    and of the right shape."""
+    from srgd_tpu_torch.diffusion.base import GeneratorNoise
+    cond, label = _slice_inputs(torch, device, size, seed)
+    small, _ = _slice_inputs(torch, device, dpmpp_size, seed + 7)
+    # (model, Config overrides, runs: (name, steps, tiled))
+    families = (
+        ('conditional_gaussian', dict(learned_sinusoidal_cond=False),
+         (('gaussian_ddim_tiled', 4, True),)),
+        ('conditional_elucidated', {},
+         (('elucidated_heun_tiled', 4, True), ('elucidated_dpmpp', 4, False))),
+        ('conditional_continuous', dict(noise_schedule='learned'),
+         (('continuous_learned_tiled', 2, True),)),
+    )
+    res = {'phase': 'families', 'runs': {},
+           'launches': dict.fromkeys(KERNELS, 0)}
+    for model, over, runs in families:
+        wrapper = build_family(torch, device, model, seed=seed, **over,
+                               **conf_kw)
+        for name, steps, tiled in runs:
+            noise = GeneratorNoise(seed + 2, device)
+            if tiled:
+                def run():
+                    return wrapper.tiled_sample(
+                        cond, label, batch_size=batch_size,
+                        tile_size=tile_size, class_cond_scale=2.0,
+                        num_sample_steps=steps, noise=noise)
+            else:
+                def run():
+                    return wrapper.sample(small, label, class_cond_scale=2.0,
+                                          num_sample_steps=steps, noise=noise)
+            out, forwards, _, launches, seconds = _counted(torch, device,
+                                                           wrapper, run)
+            checks, per_forward = _slice_checks(
+                torch, device, wrapper, out, size if tiled else dpmpp_size,
+                forwards, launches)
+            for k in KERNELS:
+                res['launches'][k] += launches[k]
+            res['runs'][name] = {
+                'ok': all(checks.values()), 'checks': checks,
+                'wrapper': type(wrapper).__name__, 'steps': steps,
+                'forwards': forwards, 'launches': launches,
+                'per_forward': per_forward, 'seconds': seconds,
+                'out_mean': out.mean().item()}
+        del wrapper
+    res['ok'] = all(r['ok'] for r in res['runs'].values())
+    return res
+
+
 def _bench_net(torch, device, wrapper, cond, *, tile_size, batch_size, seed,
                forward_iters):
     """ms of one forward on a tile batch, and of one even and one odd sampler
     step: the last two of 250 steps run (248 even, 249 odd) and then the last
     alone, each after a warm-up, timed on the host clock around a synchronised
     call; the even step is their difference."""
-    from srgd_tpu_torch.diffusion.continuous import GeneratorNoise
+    from srgd_tpu_torch.diffusion.base import GeneratorNoise
 
     gen = torch.Generator(device=device).manual_seed(seed + 4)
     x = torch.randn((batch_size, 3, tile_size, tile_size), generator=gen,
@@ -921,15 +1158,17 @@ def phase_profile(torch, device, *, tile_size=256, batch_size=8, seed=0,
     return res
 
 
-def summary(kernels, slice_, slice_pallas):
-    """One entry per kernel: ``launches``, its launches on the two sampling
-    paths (each counted from 0 around that run alone), the largest error over
-    its cases, and the times and bound of its first bfloat16 case.
+def summary(kernels, *paths):
+    """One entry per kernel: ``launches``, its launches on the sampling
+    paths (``slice``, ``slice_pallas``, ``deep_cache``, ``families``; each
+    run counted from 0 around that run alone), the largest error over its
+    cases, and the times and bound of its first bfloat16 case.
     ``drive_launches`` counts launches outside any path: no module calls
     ``linear_attention``, so its ``launches`` is 0 and the one direct call of
     ``slice_pallas`` stands there."""
-    launches = {name: slice_['launches'][name] + slice_pallas['launches'][name]
+    launches = {name: sum(p['launches'][name] for p in paths)
                 for name in KERNELS}
+    slice_pallas = next(p for p in paths if p['phase'] == 'slice_pallas')
     drive = {**dict.fromkeys(KERNELS, 0),
              'linear_attention': slice_pallas['entry_pair']['drive_launches']}
     out = []
@@ -965,7 +1204,8 @@ def main() -> int:
     dev = phase_device(torch)
     emit(dev)
     emit(phase_build())
-    todo = [phase_kernels, phase_slice, phase_slice_pallas, phase_bench]
+    todo = [phase_kernels, phase_slice, phase_slice_pallas, phase_deep_cache,
+            phase_families, phase_bench]
     if '--profile' in sys.argv[1:]:
         todo.append(phase_profile)
     phases = []
@@ -973,8 +1213,7 @@ def main() -> int:
         phases.append(phase(torch, device))
         emit(phases[-1])
         torch.cuda.synchronize()
-    kernels, slice_, slice_pallas = phases[:3]
-    table = summary(kernels, slice_, slice_pallas)
+    table = summary(phases[0], *phases[1:5])
     emit(table)
     failed = [p['phase'] for p in phases if not p['ok']]
     # a kernel no module calls is held to its direct drive instead

@@ -4,8 +4,10 @@ The port's parameter names are the reference's torch keys, so a reference
 ``.pth`` needs no key conversion: ``load_reference_checkpoint`` reads its
 ``ema_model`` state dict, strips the diffusion wrapper's ``model.``/``net.``
 prefix and drops the schedule buffers the samplers rebuild from the config.
-``state_dict_from_jax`` turns the JAX package's U-Net params into the same
-layout. ``_BUFFER_KEYS``, ``strip_wrapper_prefix`` and
+A learned log-SNR schedule keeps its ``log_snr.*`` keys, which
+``split_schedule`` separates for ``schedules.LearnedLogSNR``.
+``state_dict_from_jax`` turns the JAX package's params (the U-Net's, or the
+whole tree with a learned schedule) into the same layout. ``_BUFFER_KEYS``, ``strip_wrapper_prefix`` and
 ``flax_to_torch_unet_state_dict`` are the port's own copies of the functions
 of those names in ``srgd_tpu/checkpoint/torch_convert.py``;
 tests/test_torch_hygiene.py holds them to the originals.
@@ -126,28 +128,57 @@ def flax_to_torch_unet_state_dict(params: dict, *,
     return {k: np.asarray(v, dtype) for k, v in out.items()}
 
 
+# the learned schedule's JAX layers and their reference keys (Sequential
+# and Residual nesting of the MonotonicLinear stack)
+_LOG_SNR_LAYERS = {'l1': 'net.1.net', 'l2': 'net.2.fn.0.net',
+                   'l3': 'net.2.fn.2.net'}
+_SCHEDULE_PREFIX = 'log_snr.'
+
+
 def state_dict_from_jax(params, *, pixel_shuffle_upsample: bool = True):
-    """JAX U-Net params (a nested dict of arrays) -> the port's state dict
-    (float32 CPU tensors)."""
+    """JAX params -> the port's state dict (float32 CPU tensors). ``params``
+    is the U-Net's param tree, or the whole tree ``{'params': unet[,
+    'log_snr': schedule]}``, whose learned schedule becomes the reference's
+    ``log_snr.*`` entries (kernels (in, out) transposed to (out, in))."""
+    schedule = None
+    if 'params' in params:
+        params, schedule = params['params'], params.get('log_snr')
     sd = flax_to_torch_unet_state_dict(params,
                                        pixel_shuffle_upsample=pixel_shuffle_upsample)
+    for layer, key in _LOG_SNR_LAYERS.items():
+        if schedule:
+            sd[f'{_SCHEDULE_PREFIX}{key}.weight'] = np.transpose(
+                schedule[layer]['kernel'], (1, 0))
+            sd[f'{_SCHEDULE_PREFIX}{key}.bias'] = schedule[layer]['bias']
     return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
 
 
+def split_schedule(state_dict) -> tuple[dict, dict]:
+    """(U-Net entries, learned-schedule entries without their ``log_snr.``
+    prefix) of a state dict; the second is empty without a learned
+    schedule."""
+    unet_sd, schedule_sd = {}, {}
+    for key, val in state_dict.items():
+        if key.startswith(_SCHEDULE_PREFIX):
+            schedule_sd[key[len(_SCHEDULE_PREFIX):]] = val
+        else:
+            unet_sd[key] = val
+    return unet_sd, schedule_sd
+
+
 def load_reference_checkpoint(path) -> dict:
-    """The U-Net state dict of a reference-format ``.pth``: its
-    ``ema_model`` entry (or the whole file when it has none), with the
-    wrapper prefix stripped and the schedule buffers dropped. Raises
-    NotImplementedError for a learned log-SNR schedule and KeyError for any
-    other entry outside the U-Net."""
+    """The state dict of a reference-format ``.pth``: its ``ema_model``
+    entry (or the whole file when it has none), with the wrapper prefix
+    stripped and the schedule buffers dropped; a learned log-SNR schedule's
+    ``log_snr.*`` entries stay. Raises KeyError for any other entry outside
+    the U-Net."""
     ckpt = torch.load(path, map_location='cpu', weights_only=True)
     sd = ckpt['ema_model'] if 'ema_model' in ckpt else ckpt
     unet_sd, extras = strip_wrapper_prefix(sd)
     extras = {k: v for k, v in extras.items() if not _BUFFER_KEYS.match(k)}
-    if any(k.startswith('log_snr.') for k in extras):
-        raise NotImplementedError(
-            'checkpoints with a learned log-SNR schedule are not ported to '
-            'srgd_tpu_torch yet (ROADMAP.md Queue 1 item 11)')
-    if extras:
-        raise KeyError(f'unexpected non-U-Net keys: {sorted(extras)[:10]}')
-    return unet_sd
+    schedule = {k: v for k, v in extras.items()
+                if k.startswith(_SCHEDULE_PREFIX)}
+    unknown = sorted(set(extras) - set(schedule))
+    if unknown:
+        raise KeyError(f'unexpected non-U-Net keys: {unknown[:10]}')
+    return {**unet_sd, **schedule}

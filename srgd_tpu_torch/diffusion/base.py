@@ -1,5 +1,6 @@
-"""Shared diffusion machinery: normalisation, fused classifier-free guidance
-and the tiled sampler's per-parity tile batches.
+"""Shared diffusion machinery: normalisation, fused classifier-free guidance,
+the DeepCache refresh schedule and the tiled sampler's per-parity tile
+batches.
 
 Counterpart of ``srgd_tpu/diffusion/base.py``. Guidance runs the conditional
 and the null branch as ONE doubled batch in ``[cond, null]`` order and merges
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
 from srgd_tpu_torch.tiling import extract_tiles, zero_margin
@@ -42,16 +44,37 @@ def resolve_guidance_mode(cond_scale: float, class_cond_scale: float) -> str:
     return GUIDANCE_NONE
 
 
+def guidance_scale(i: int, mode: str, cond_scale: float,
+                   guidance_start_steps: int, class_cond_scale: float,
+                   class_guidance_start_steps: int) -> float:
+    """Guidance warmup: scale 1 (the conditional output) before the start
+    step of the active guidance mode."""
+    if mode == GUIDANCE_COND:
+        return 1.0 if i < guidance_start_steps else cond_scale
+    if mode == GUIDANCE_CLASS:
+        return 1.0 if i < class_guidance_start_steps else class_cond_scale
+    return 1.0
+
+
 def guided_denoise(net_apply: Callable, x, time_b, cond, class_label,
-                   mode: str, scale: float):
+                   mode: str, scale: float, deep_cache=None,
+                   return_cache: bool = False):
     """One denoiser call, doubled to ``[cond, null]`` under guidance.
 
-    net_apply(x, time, cond, class_label, class_mask) -> prediction. At
-    ``scale == 1`` the merge gives the conditional output exactly, which is
-    the guidance warmup's behaviour."""
+    net_apply(x, time, cond, class_label, class_mask, **cache_kw) ->
+    prediction. At ``scale == 1`` the merge gives the conditional output
+    exactly, which is the guidance warmup's behaviour.
+
+    DeepCache: ``return_cache=True`` returns (prediction, cache) from a full
+    forward; ``deep_cache=<cache>`` runs the net's shallow half on it. The
+    cache is sample-major: under guidance the doubled batch's cache is
+    folded to (B, 2, C, h, w) on the way out and unfolded on the way in."""
     b = x.shape[0]
+    kw = {}
+    if deep_cache is not None or return_cache:
+        kw = dict(deep_cache=deep_cache, return_cache=return_cache)
     if mode == GUIDANCE_NONE:
-        return net_apply(x, time_b, cond, class_label, None)
+        return net_apply(x, time_b, cond, class_label, None, **kw)
 
     x2 = torch.cat([x, x])
     t2 = torch.cat([time_b, time_b])
@@ -65,9 +88,175 @@ def guided_denoise(net_apply: Callable, x, time_b, cond, class_label,
         label2 = torch.cat([class_label, class_label])
         ones = torch.ones(b, dtype=torch.float32, device=x.device)
         mask2 = torch.cat([ones, torch.zeros_like(ones)])
-    out2 = net_apply(x2, t2, cond2, label2, mask2)
+    if deep_cache is not None:
+        # (B, 2, ...) sample-major -> (2B, ...) doubled-batch order
+        kw['deep_cache'] = torch.cat([deep_cache[:, 0], deep_cache[:, 1]])
+    out2 = net_apply(x2, t2, cond2, label2, mask2, **kw)
+    if return_cache:
+        out2, cache2 = out2
+        cache = torch.stack([cache2[:b], cache2[b:]], dim=1)
     cond_out, null_out = out2[:b], out2[b:]
-    return null_out + (cond_out - null_out) * scale
+    merged = null_out + (cond_out - null_out) * scale
+    return (merged, cache) if return_cache else merged
+
+
+def cache_zeros(net, depth: int, batch: int, h: int, w: int, mode: str):
+    """A DeepCache buffer that is written before it is read: sample-major,
+    (batch, C, h', w') at U-Net stage ``depth`` of an h x w input, with a
+    CFG pair axis (batch, 2, C, h', w') when guidance doubles the net batch.
+    Each sample's (C, h', w') is channels-last in memory, the net's own
+    layout, so a slice of it feeds the net without a copy."""
+    hd, wd = h >> (depth - 1), w >> (depth - 1)
+    c = net.dim * net.dim_mults[depth - 1]
+    pair = () if mode == GUIDANCE_NONE else (2,)
+    buf = torch.zeros((batch, *pair, hd, wd, c), dtype=net.dtype,
+                      device=net.init_conv.weight.device)
+    n = buf.dim()
+    return buf.permute(*range(n - 3), n - 1, n - 3, n - 2)
+
+
+def refresh_mask(schedule: str, interval: int, n: int) -> np.ndarray:
+    """DeepCache refresh positions: a bool[n] mask over EXECUTED step
+    counters j (untiled samplers: j = i - start; tiled: j = (i - start) // 2,
+    the per-parity step counter).
+
+    ``schedule == ''``: uniform, a refresh when j % interval == 0. Otherwise
+    a list of ``COUNTxINTERVAL`` segments separated by ',' or '/', walked in
+    sampling order (high noise to low noise). COUNT is a step count, or a
+    fraction of n when it is at most 1; the last segment fills what is left
+    of n whatever its COUNT. Each segment refreshes at its local
+    j % INTERVAL == 0, so it opens with a refresh. j = 0 always refreshes:
+    the first executed step has no cache to read."""
+    if not schedule:
+        return np.arange(n) % max(interval, 1) == 0
+    mask = np.zeros(n, dtype=bool)
+    pos = 0
+    segments = [s.strip() for s in schedule.replace('/', ',').split(',')
+                if s.strip()]
+    for k, seg in enumerate(segments):
+        cnt_s, _, int_s = seg.partition('x')
+        iv = max(int(int_s), 1)
+        cnt_f = float(cnt_s)
+        cnt = int(round(cnt_f * n)) if cnt_f <= 1.0 else int(cnt_f)
+        if k == len(segments) - 1:
+            cnt = n - pos
+        cnt = min(cnt, n - pos)
+        mask[pos:pos + cnt] = np.arange(cnt) % iv == 0
+        pos += cnt
+        if pos >= n:
+            break
+    if n > 0:
+        mask[0] = True
+    return mask
+
+
+class GeneratorNoise:
+    """The default noise source: one ``torch.Generator`` seeded with ``seed``
+    on ``device``, drawn in the samplers' documented order (the module
+    docstrings of the three families). ``init(shape)``, ``step(i, shape)``
+    and ``margin(i, shape)`` each return a float32 standard-normal tensor."""
+
+    def __init__(self, seed: int, device):
+        self.device = torch.device(device)
+        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+
+    def _draw(self, shape):
+        return torch.randn(tuple(shape), generator=self.gen,
+                           device=self.device, dtype=torch.float32)
+
+    def init(self, shape):
+        return self._draw(shape)
+
+    def step(self, i: int, shape):
+        return self._draw(shape)
+
+    def margin(self, i: int, shape):
+        return self._draw(shape)
+
+
+class DeepCache:
+    """One sampling run's DeepCache: the refresh mask over the step counter
+    and the cache buffers, allocated once for the run (one per grid parity
+    when tiled, each holding every padded tile's cache).
+
+    ``step(fn, j, slot, rows)`` runs one denoiser step of step counter j on
+    the buffer rows ``rows`` of ``slot``: on a refresh it calls
+    ``fn(return_cache=True)``, whose result ends with the fresh cache, keeps
+    that cache and returns the rest; otherwise it calls
+    ``fn(deep_cache=<the kept rows>)``."""
+
+    def __init__(self, mask: np.ndarray, buffers: list):
+        self.mask, self.buffers = mask, buffers
+
+    @classmethod
+    def untiled(cls, net, depth: int, interval: int, schedule: str,
+                n_steps: int, shape, mode: str) -> 'DeepCache':
+        """``n_steps`` executed steps on (B, H, W, C) images."""
+        b, h, w = shape[:3]
+        return cls(refresh_mask(schedule, interval, n_steps),
+                   [cache_zeros(net, depth, b, h, w, mode)])
+
+    @classmethod
+    def tiled(cls, net, depth: int, interval: int, schedule: str,
+              n_steps: int, cond_tiles, mode: str) -> 'DeepCache':
+        """``n_steps`` executed steps over both grid parities, whose padded
+        (tiles, th, tw, C) condition batches are ``cond_tiles``: the mask
+        covers the per-parity counter, (n_steps + 1) // 2 + 1 entries."""
+        return cls(refresh_mask(schedule, interval, (n_steps + 1) // 2 + 1),
+                   [cache_zeros(net, depth, *ct.shape[:3], mode)
+                    for ct in cond_tiles])
+
+    def step(self, fn: Callable, j: int, slot: int = 0,
+             rows: slice = slice(None)):
+        if self.mask[j]:
+            *out, cache = fn(return_cache=True)
+            self.buffers[slot][rows].copy_(cache)
+            return tuple(out)
+        return fn(deep_cache=self.buffers[slot][rows])
+
+
+class NoCache:
+    """The ``DeepCache`` interface of a run without DeepCache: every step
+    runs the full net."""
+
+    @staticmethod
+    def step(fn: Callable, j: int, slot: int = 0, rows: slice = slice(None)):
+        return fn()
+
+
+def nhwc_net_apply(net, cache_depth: int):
+    """The denoiser on (B, H, W, C) tensors: the net runs on NCHW views of
+    the same memory (channels_last) and returns float32 (B, H, W, C). The
+    DeepCache keywords pass through with ``cache_depth``; the cache stays in
+    the net's NCHW layout."""
+    def apply(x, time_b, cond, class_label, class_mask, **cache_kw):
+        def nchw(t):
+            return None if t is None else t.permute(0, 3, 1, 2)
+        if cache_kw:
+            cache_kw['cache_depth'] = cache_depth
+        out = net(nchw(x), time_b, cond=nchw(cond), class_label=class_label,
+                  class_mask=class_mask, **cache_kw)
+        if cache_kw.get('return_cache'):
+            return out[0].permute(0, 2, 3, 1), out[1]
+        return out.permute(0, 2, 3, 1)
+    return apply
+
+
+def make_deep_cache(wrapper, n_steps: int, mode: str, *, shape=None,
+                    cond_tiles=None, schedule=None):
+    """A family wrapper's ``DeepCache`` for one run of ``n_steps`` executed
+    steps (``NoCache`` at interval 0 or 1): untiled for (B, H, W, C) images
+    of ``shape``, tiled for the parities' padded ``cond_tiles``.
+    ``schedule`` overrides the wrapper's refresh schedule."""
+    if wrapper.deep_cache_interval <= 1:
+        return NoCache()
+    if schedule is None:
+        schedule = wrapper.deep_cache_schedule
+    args = (wrapper.net, wrapper.deep_cache_depth, wrapper.deep_cache_interval,
+            schedule, n_steps)
+    if cond_tiles is not None:
+        return DeepCache.tiled(*args, cond_tiles, mode)
+    return DeepCache.untiled(*args, shape, mode)
 
 
 def pick_chunk(n_tiles: int, batch_size: int) -> int:

@@ -1,10 +1,12 @@
 """Continuous-time Gaussian diffusion (VDM), the reference's shipped family:
 the ancestral, DDIM(eta) and DPM-Solver++(2M) samplers, untiled and
-alternating-grid tiled.
+alternating-grid tiled, on a linear, cosine or learned log-SNR schedule, with
+or without DeepCache.
 
 Counterpart of ``srgd_tpu/diffusion/continuous.py``. The JAX version compiles
 the step loop into one scan; here it is a plain Python loop of eager steps.
-Step math (per step i, log-SNR from a float64 host table):
+Step math (per step i, log-SNR from a float64 host table, or from the
+learned schedule's float32 net):
 
     c        = -expm1(logSNR - logSNR_next)
     alpha^2  = sigmoid(logSNR),  sigma^2 = sigmoid(-logSNR)
@@ -43,6 +45,12 @@ with ``GeneratorNoise`` their margin draws follow the init draw directly.
 source that returns, for ``step(i)`` and ``margin(i)``, the normals of the
 two halves of ``split(fold_in(rng, i))`` and, for ``init``, those of the
 init key (``srgd_tpu.diffusion.continuous.tiled_sample``).
+
+DeepCache (``deep_cache_interval > 1``): the net's deep half runs only on
+the refresh steps of ``base.refresh_mask``, over the executed step counter
+(untiled) or the per-parity counter (tiled, one cache stack per grid parity
+holding every tile's cache); the steps in between run the shallow half on the
+kept cache. ``dpmpp`` refuses it.
 """
 
 from __future__ import annotations
@@ -51,37 +59,14 @@ import numpy as np
 import torch
 
 from srgd_tpu_torch.diffusion.base import (
-    GUIDANCE_CLASS, GUIDANCE_COND, guided_denoise, normalize_to_neg_one_to_one,
-    pad_tiles_to_multiple, prepare_tile_context, resolve_guidance_mode,
-    unnormalize_to_zero_to_one,
+    GeneratorNoise, guidance_scale, guided_denoise, make_deep_cache,
+    nhwc_net_apply, normalize_to_neg_one_to_one, pad_tiles_to_multiple,
+    prepare_tile_context, resolve_guidance_mode, unnormalize_to_zero_to_one,
 )
 from srgd_tpu_torch.diffusion.schedules import make_log_snr_table
 from srgd_tpu_torch.tiling import (
     extract_tiles, make_geometry, reflect_pad, scatter_tiles,
 )
-
-
-class GeneratorNoise:
-    """The default noise source: one ``torch.Generator`` seeded with ``seed``
-    on ``device``, drawn in the samplers' documented order."""
-
-    def __init__(self, seed: int, device):
-        self.device = torch.device(device)
-        self.gen = torch.Generator(device=self.device).manual_seed(seed)
-
-    def _draw(self, shape):
-        return torch.randn(tuple(shape), generator=self.gen,
-                           device=self.device, dtype=torch.float32)
-
-    def init(self, shape):
-        return self._draw(shape)
-
-    def step(self, i: int, shape):
-        return self._draw(shape)
-
-    def margin(self, i: int, shape):
-        return self._draw(shape)
-
 
 def _f32(v):
     return np.float32(v)
@@ -97,23 +82,30 @@ SAMPLERS = ('ancestral', 'ddim', 'dpmpp')
 class ContinuousDiffusion:
     """Wraps a denoiser net with the continuous-time samplers. ``sampler``:
     'ancestral' (the reference's), 'ddim' (``ddim_eta`` 0 deterministic, 1
-    the ancestral posterior variance) or 'dpmpp' (DPM-Solver++(2M))."""
+    the ancestral posterior variance) or 'dpmpp' (DPM-Solver++(2M)).
+    ``noise_schedule`` 'learned' reads the ``LearnedLogSNR`` module passed as
+    ``log_snr``. ``deep_cache_interval`` > 1 turns DeepCache on, split at
+    U-Net stage ``deep_cache_depth``, refreshing on ``deep_cache_schedule``
+    (``base.refresh_mask``)."""
 
     def __init__(self, net, *, image_size: int, channels: int = 3,
                  noise_schedule: str = 'linear', num_sample_steps: int = 500,
                  clip_sample_denoised: bool = True, sampler: str = 'ancestral',
-                 ddim_eta: float = 0.0, deep_cache_interval: int = 0):
+                 ddim_eta: float = 0.0, deep_cache_interval: int = 0,
+                 deep_cache_depth: int = 2, deep_cache_schedule: str = '',
+                 log_snr=None):
         if sampler not in SAMPLERS:
             raise ValueError(f'unknown continuous sampler {sampler!r}; '
                              f'supported: {", ".join(map(repr, SAMPLERS))}')
-        if deep_cache_interval > 1:
+        if sampler == 'dpmpp' and deep_cache_interval > 1:
             raise NotImplementedError(
-                'DeepCache sampling is not ported to srgd_tpu_torch yet '
-                '(ROADMAP.md Queue 1 item 9)')
-        if noise_schedule == 'learned':
-            raise NotImplementedError(
-                'the learned log-SNR schedule is not ported to srgd_tpu_torch '
-                'yet (ROADMAP.md Queue 1 item 11)')
+                'dpmpp + deep_cache is not supported: the multistep solver '
+                'threads a previous-x0 state that would interleave with the '
+                'deep-feature cache refresh schedule; use ddim/ancestral '
+                'with deep_cache, or dpmpp without it')
+        if (noise_schedule == 'learned') != (log_snr is not None):
+            raise ValueError('the learned noise schedule takes its '
+                             'LearnedLogSNR module as log_snr, and only it')
         self.net = net
         self.image_size = image_size
         self.channels = channels
@@ -122,23 +114,21 @@ class ContinuousDiffusion:
         self.clip_sample_denoised = clip_sample_denoised
         self.sampler = sampler
         self.ddim_eta = ddim_eta
+        self.deep_cache_interval = deep_cache_interval
+        self.deep_cache_depth = deep_cache_depth
+        self.deep_cache_schedule = deep_cache_schedule
+        self.log_snr = log_snr
+        self.net_apply = nhwc_net_apply(net, deep_cache_depth)
 
     @property
     def uses_step_noise(self) -> bool:
         return self.sampler == 'ancestral' or (self.sampler == 'ddim'
                                                and bool(self.ddim_eta))
 
-    def net_apply(self, x, time_b, cond, class_label, class_mask):
-        """(B, H, W, C) in, float32 (B, H, W, C) out; the net runs on NCHW
-        views of the same memory (channels_last)."""
-        def nchw(t):
-            return None if t is None else t.permute(0, 3, 1, 2)
-        out = self.net(nchw(x), time_b, cond=nchw(cond),
-                       class_label=class_label, class_mask=class_mask)
-        return out.permute(0, 2, 3, 1)
-
     def log_snr_table(self, num_steps: int) -> np.ndarray:
         """Per-step log-SNR at linspace(1, 0, N+1), float32."""
+        if self.log_snr is not None:
+            return self.log_snr.table(num_steps)
         return make_log_snr_table(self.noise_schedule,
                                   np.linspace(1.0, 0.0, num_steps + 1))
 
@@ -149,13 +139,14 @@ class ContinuousDiffusion:
 
     def p_sample_tiles(self, x, cond, class_label, noise, log_snr,
                        log_snr_next, mode: str, scale: float, is_last: bool,
-                       prev_x0=None, log_snr_prev=None):
+                       prev_x0=None, log_snr_prev=None, deep_cache=None,
+                       return_cache: bool = False):
         """One reverse step on a batch of tiles (or whole images). Returns
-        (x_next, x_start). Scalars are float32, as in the JAX step. For
-        'dpmpp' the caller threads the multistep state: ``prev_x0`` (the
-        previous step's x_start, shaped like x) and ``log_snr_prev``; both
-        None on the first executed step, where the update is the one-step
-        DDIM limit."""
+        (x_next, x_start), and the fresh cache last with ``return_cache``.
+        Scalars are float32, as in the JAX step. For 'dpmpp' the caller
+        threads the multistep state: ``prev_x0`` (the previous step's
+        x_start, shaped like x) and ``log_snr_prev``; both None on the first
+        executed step, where the update is the one-step DDIM limit."""
         ls, lsn = _f32(log_snr), _f32(log_snr_next)
         c = -np.expm1(ls - lsn)
         alpha = np.sqrt(_sigmoid(ls))
@@ -166,7 +157,11 @@ class ContinuousDiffusion:
         time_b = torch.full((x.shape[0],), float(ls), dtype=torch.float32,
                             device=x.device)
         eps = guided_denoise(self.net_apply, x, time_b, cond, class_label,
-                             mode, scale)
+                             mode, scale, deep_cache=deep_cache,
+                             return_cache=return_cache)
+        cache = ()
+        if return_cache:
+            eps, cache = eps[0], eps[1:]
         x_start = (x - float(sigma) * eps) / float(alpha)
         clip = self.clip_sample_denoised
         if clip:
@@ -180,41 +175,33 @@ class ContinuousDiffusion:
                 d = x_start + (x_start - prev_x0) / float(_f32(2.0) * r)
             x_next = (float(np.sqrt(sq_sigma_next) / sigma) * x
                       - float(alpha_next * np.expm1(-h)) * d)
-            return x_next, x_start
+            return (x_next, x_start) + cache
 
         if self.sampler == 'ddim':
             if clip:    # eps re-derived from the clamped x0
                 eps = (x - float(alpha) * x_start) / float(sigma)
             if not self.ddim_eta:
                 return (float(alpha_next) * x_start
-                        + float(np.sqrt(sq_sigma_next)) * eps), x_start
+                        + float(np.sqrt(sq_sigma_next)) * eps,
+                        x_start) + cache
             std = _f32(self.ddim_eta) * np.sqrt(np.maximum(sq_sigma_next * c,
                                                            _f32(0.0)))
             x_next = (float(alpha_next) * x_start
                       + float(np.sqrt(np.maximum(sq_sigma_next - std * std,
                                                  _f32(0.0)))) * eps)
-            return (x_next if is_last else x_next + float(std) * noise), x_start
+            if not is_last:
+                x_next = x_next + float(std) * noise
+            return (x_next, x_start) + cache
 
         if clip:
             mean = float(alpha_next) * (x * float(_f32(1.0) - c)
                                         / float(alpha) + float(c) * x_start)
         else:
             mean = float(alpha_next / alpha) * (x - float(c * sigma) * eps)
-        if is_last:
-            return mean, x_start
-        var = max(float(sq_sigma_next * c), 0.0)
-        return mean + float(np.sqrt(_f32(var))) * noise, x_start
-
-    @staticmethod
-    def _step_scale(i, mode, cond_scale, guidance_start_steps,
-                    class_cond_scale, class_guidance_start_steps) -> float:
-        """Guidance warmup: scale 1 (the conditional output) before the start
-        step."""
-        if mode == GUIDANCE_COND:
-            return 1.0 if i < guidance_start_steps else cond_scale
-        if mode == GUIDANCE_CLASS:
-            return 1.0 if i < class_guidance_start_steps else class_cond_scale
-        return 1.0
+        if not is_last:
+            var = max(float(sq_sigma_next * c), 0.0)
+            mean = mean + float(np.sqrt(_f32(var))) * noise
+        return (mean, x_start) + cache
 
     @torch.inference_mode()
     def sample(self, condition_x, class_label=None, *, cond_scale: float = 1.0,
@@ -228,6 +215,7 @@ class ContinuousDiffusion:
         ``step_noises`` (N, B, H, W, C) override the noise source, as the JAX
         ``sample`` allows."""
         n_steps = num_sample_steps or self.num_sample_steps
+        gss = generation_start_steps
         cond = normalize_to_neg_one_to_one(condition_x)
         table = self.log_snr_table(n_steps)
         mode = resolve_guidance_mode(cond_scale, class_cond_scale)
@@ -237,11 +225,11 @@ class ContinuousDiffusion:
 
         if init_noise is None:
             init_noise = noise.init(cond.shape)
-        img = (self.q_sample_log_snr(cond, table[generation_start_steps],
-                                     init_noise)
-               if generation_start_steps > 0 else init_noise)
+        img = (self.q_sample_log_snr(cond, table[gss], init_noise)
+               if gss > 0 else init_noise)
+        dc = make_deep_cache(self, n_steps - gss, mode, shape=cond.shape)
         prev_x0 = None      # dpmpp: the previous step's x_start
-        for i in range(generation_start_steps, n_steps):
+        for i in range(gss, n_steps):
             is_last = i == n_steps - 1
             if is_last or not self.uses_step_noise:
                 nz = None
@@ -249,13 +237,14 @@ class ContinuousDiffusion:
                 nz = step_noises[i]
             else:
                 nz = noise.step(i, img.shape)
-            scale = self._step_scale(i, mode, cond_scale, guidance_start_steps,
-                                     class_cond_scale,
-                                     class_guidance_start_steps)
-            img, x_start = self.p_sample_tiles(
-                img, cond, class_label, nz, table[i], table[i + 1], mode,
-                scale, is_last, prev_x0=prev_x0,
-                log_snr_prev=table[max(i - 1, 0)])
+            scale = guidance_scale(i, mode, cond_scale, guidance_start_steps,
+                                   class_cond_scale,
+                                   class_guidance_start_steps)
+            img, x_start = dc.step(
+                lambda **kw: self.p_sample_tiles(
+                    img, cond, class_label, nz, table[i], table[i + 1], mode,
+                    scale, is_last, prev_x0=prev_x0,
+                    log_snr_prev=table[max(i - 1, 0)], **kw), i - gss)
             if self.sampler == 'dpmpp':
                 prev_x0 = x_start
         return unnormalize_to_zero_to_one(torch.clamp(img, -1.0, 1.0))
@@ -296,6 +285,7 @@ class ContinuousDiffusion:
 
         cond_tiles, label_tiles, n_chunks, chunks, interior_mask = \
             prepare_tile_context(cond_padded, geom, b, batch_size, class_label)
+        dc = make_deep_cache(self, n_steps - gss, mode, cond_tiles=cond_tiles)
 
         # dpmpp threads a canvas of the previous step's x_start: each step's
         # tiles read it on their own grid and scatter their x_start back
@@ -309,9 +299,9 @@ class ContinuousDiffusion:
         for i in range(gss, n_steps):
             p = i % 2
             is_last = i == n_steps - 1
-            scale = self._step_scale(i, mode, cond_scale, guidance_start_steps,
-                                     class_cond_scale,
-                                     class_guidance_start_steps)
+            scale = guidance_scale(i, mode, cond_scale, guidance_start_steps,
+                                   class_cond_scale,
+                                   class_guidance_start_steps)
             tiles, n_orig = tiled(img, p)
             nz = None
             if not is_last and self.uses_step_noise:
@@ -320,13 +310,15 @@ class ContinuousDiffusion:
             outs, x0s = [], []
             for k in range(n_chunks[p]):
                 sl = slice(k * chunks[p], (k + 1) * chunks[p])
-                nx, xs = self.p_sample_tiles(
-                    tiles[sl], cond_tiles[p][sl],
-                    None if label_tiles[p] is None else label_tiles[p][sl],
-                    None if nz is None else nz[sl], table[i], table[i + 1],
-                    mode, scale, is_last,
-                    prev_x0=None if px is None else px[sl],
-                    log_snr_prev=table[max(i - 1, 0)])
+                nx, xs = dc.step(
+                    lambda **kw: self.p_sample_tiles(
+                        tiles[sl], cond_tiles[p][sl],
+                        None if label_tiles[p] is None else label_tiles[p][sl],
+                        None if nz is None else nz[sl], table[i],
+                        table[i + 1], mode, scale, is_last,
+                        prev_x0=None if px is None else px[sl],
+                        log_snr_prev=table[max(i - 1, 0)], **kw),
+                    (i - gss) // 2, p, sl)
                 outs.append(nx)
                 x0s.append(xs)
             img = scatter_tiles(img, torch.cat(outs)[:n_orig], geom, p)

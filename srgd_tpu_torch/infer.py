@@ -28,7 +28,7 @@ import time
 import numpy as np
 import torch
 
-from srgd_tpu_torch.diffusion.continuous import GeneratorNoise
+from srgd_tpu_torch.diffusion.base import GeneratorNoise
 
 logger = logging.getLogger('srgd_tpu_torch')
 
@@ -68,9 +68,17 @@ def parse_args(argv=None):
     p.add_argument('--quant_cal_mode', type=str, default=None)
     p.add_argument('--quant_calibrate', action='store_true')
     p.add_argument('--quant_calibrate_cache', type=str, default=None)
-    p.add_argument('--deep_cache', type=int, default=0)
-    p.add_argument('--deep_cache_depth', type=int, default=None)
-    p.add_argument('--deep_cache_schedule', type=str, default=None)
+    p.add_argument('--deep_cache', type=int, default=0,
+                   help='>1: DeepCache sampling, the U-Net deep half '
+                        'recomputed only every Nth step (per grid parity '
+                        'when tiled); 0/1 = exact')
+    p.add_argument('--deep_cache_depth', type=int, default=2,
+                   help='U-Net stage where the cached deep half starts '
+                        '(1..n_stages-1)')
+    p.add_argument('--deep_cache_schedule', type=str, default='',
+                   help="refresh positions as COUNTxINTERVAL segments in "
+                        "sampling order, e.g. '0.5x3/0.5x1'; '' = every "
+                        "--deep_cache-th step")
     p.add_argument('--matmul_precision', type=str, default='default',
                    choices=['default', 'high', 'highest'])
     p.add_argument('--tile_size', type=int, default=256)
@@ -94,8 +102,6 @@ def check_ported(args) -> None:
          args.quantize_smooth_alpha is not None or args.quant_calibrate or
          args.quant_calibrate_per_time or args.quant_cal_mode is not None or
          args.quant_calibrate_cache is not None, '--quant*', 14),
-        (args.deep_cache > 1 or args.deep_cache_depth is not None or
-         args.deep_cache_schedule is not None, '--deep_cache*', 9),
         (bool(args.mesh), '--mesh', 15),
     ]
     for bad, flag, item in unported:
@@ -221,6 +227,7 @@ def build_sampler(args, noise_for_seed=GeneratorNoise) -> Sampler:
     conf = load_config(args.conf)
     conf.num_sample_steps = args.num_sample_steps
     conf.ckpt_path = args.ckpt_path
+    conf.use_dpmpp_solver = args.use_dpmpp_solver
     conf.compute_dtype = {'fp32': 'float32', 'bf16': 'bfloat16'}[args.precision]
     conf.quantize = 'none'   # --precision fp32/bf16 overrides a YAML's quantize
     conf.tile_size = args.tile_size
@@ -229,6 +236,10 @@ def build_sampler(args, noise_for_seed=GeneratorNoise) -> Sampler:
         conf.continuous_sampler = args.continuous_sampler
     if args.ddim_eta is not None:
         conf.ddim_eta = args.ddim_eta
+    if args.deep_cache:
+        conf.deep_cache_interval = args.deep_cache
+        conf.deep_cache_depth = args.deep_cache_depth
+        conf.deep_cache_schedule = args.deep_cache_schedule
     wrapper, _ = get_model(conf, device=device)
     opts = dict(batch_size=args.batch_size, tile_size=args.tile_size,
                 tile_stride=conf.tile_stride or None,

@@ -143,15 +143,35 @@ class SRUnet(nn.Module):
             if isinstance(m, PixelShuffleUpsample):
                 m.init_weights(gen)
 
-    def forward(self, x, time, cond=None, class_label=None, class_mask=None):
+    def forward(self, x, time, cond=None, class_label=None, class_mask=None,
+                deep_cache=None, cache_depth: int = 0,
+                return_cache: bool = False):
         """x: (B, C, H, W) noisy image in [-1, 1]; time: (B,) float; cond:
         (B, C, H, W) LR condition or None (zeros: the CFG null); class_label:
         (B,) int or None; class_mask: (B,) float gating the class-embedding
-        addition per sample (None: all ones). Returns float32 (B, C, H, W)."""
+        addition per sample (None: all ones). Returns float32 (B, C, H, W).
+
+        DeepCache (arXiv 2312.09608) splits the net at stage
+        ``cache_depth = d``, 1 <= d < len(dim_mults). A full forward with
+        ``return_cache=True`` also returns the decoder feature that enters
+        stage d, (B, dim * dim_mults[d - 1], H / 2^(d-1), W / 2^(d-1)) in the
+        net's compute dtype. A cached forward (``deep_cache=<that feature>``)
+        skips encoder stages >= d, stage d-1's downsample, the mid block and
+        decoder stages >= d. Fed the cache of the same (x, time), it returns
+        the full forward's bits: the stages it runs see the same inputs."""
         f = self.downsample_factor
         if x.shape[2] % f or x.shape[3] % f:
             raise ValueError(f'input spatial dims {tuple(x.shape[2:])} must be '
                              f'divisible by {f}')
+        n_stages = len(self.downs)
+        if deep_cache is not None or return_cache:
+            if not 1 <= cache_depth < n_stages:
+                raise ValueError(f'cache_depth must be in [1, {n_stages - 1}], '
+                                 f'got {cache_depth}')
+        if deep_cache is not None and return_cache:
+            raise ValueError('a cached forward cannot also produce a fresh '
+                             'cache')
+        skip_deep = deep_cache is not None
         if cond is None:
             cond = torch.zeros_like(x)
         x = torch.cat([x, cond.to(x.dtype)], dim=1).to(self.dtype)
@@ -167,35 +187,53 @@ class SRUnet(nn.Module):
             t = t + c
 
         hs = []
-        for block1, block2, attn, down in self.downs:
+        for i, (block1, block2, attn, down) in enumerate(self.downs):
+            if skip_deep and i >= cache_depth:
+                break
             x = block1(x, t)
             hs.append(x)
             x = block2(x, t)
             x = attn(x) + x
             hs.append(x)
+            if skip_deep and i == cache_depth - 1:
+                break    # this downsample only feeds the skipped deep half
             x = down(x)
 
-        x = self.mid_block1(x, t)
-        x = self.mid_attn(x) + x
-        x = self.mid_block2(x, t)
+        if skip_deep:
+            x = deep_cache.to(self.dtype).contiguous(
+                memory_format=torch.channels_last)
+        else:
+            x = self.mid_block1(x, t)
+            x = self.mid_attn(x) + x
+            x = self.mid_block2(x, t)
 
-        for block1, block2, attn, up in self.ups:
+        cache = None
+        for i, (block1, block2, attn, up) in enumerate(self.ups):
+            stage = n_stages - 1 - i
+            if skip_deep and stage >= cache_depth:
+                continue
             x = block1(torch.cat([x, hs.pop()], dim=1), t)
             x = block2(torch.cat([x, hs.pop()], dim=1), t)
             x = attn(x) + x
             x = up(x)
+            if return_cache and stage == cache_depth:
+                # a cached forward enters here from a channels-last cache; a
+                # pixel shuffle may return another layout, which would change
+                # the concatenation's layout and so the convolution's
+                # algorithm
+                x = cache = x.contiguous(memory_format=torch.channels_last)
 
         x = self.final_res_block(torch.cat([x, r], dim=1), t)
-        return self.final_conv(x).float()
+        out = self.final_conv(x).float()
+        return (out, cache) if return_cache else out
 
 
 def build_unet_from_config(conf, dtype=None, device=None) -> SRUnet:
     """``Config`` -> ``SRUnet``, as the JAX factory builds it. Options the port
-    does not carry raise (ROADMAP Queue 1 items 9, 14 and 12)."""
+    does not carry raise (ROADMAP Queue 1 items 14 and 12)."""
     unsupported = {
         'quantize': conf.quantize != 'none',
         'remat_unet': conf.remat_unet,
-        'deep_cache_interval': conf.deep_cache_interval > 1,
     }
     bad = [k for k, on in unsupported.items() if on]
     if bad:

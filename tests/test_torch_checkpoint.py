@@ -91,14 +91,42 @@ def test_load_reference_checkpoint_strict(tmp_path, jax_params):
 
 
 def test_load_reference_checkpoint_rejects_unported(tmp_path, jax_params):
-    _, params = jax_params
-    exported = export_torch_state_dict({'params': params},
-                                       model='conditional_continuous')
-    learned = dict(exported, **{'log_snr.net.1.net.weight':
-                                np.zeros((1, 1), np.float32)})
-    _save(tmp_path / 'learned.pth', learned)
-    with pytest.raises(NotImplementedError, match='Queue 1 item 11'):
-        load_reference_checkpoint(tmp_path / 'learned.pth')
+    """A learned log-SNR schedule's entries load (``log_snr.*``, kept beside
+    the U-Net's) and equal what the JAX converter reads from the same file;
+    any other entry outside the U-Net is still refused."""
+    from srgd_tpu.checkpoint.torch_convert import (convert_learned_log_snr,
+                                                   load_torch_checkpoint,
+                                                   strip_wrapper_prefix)
+    from srgd_tpu.diffusion.schedules import init_learned_log_snr
+    from srgd_tpu_torch.checkpoint import split_schedule
+    from srgd_tpu_torch.diffusion.schedules import LearnedLogSNR
+    kw, params = jax_params
+    tree = {'params': params,
+            'log_snr': init_learned_log_snr(jax.random.PRNGKey(2),
+                                            hidden_dim=16)}
+    exported = export_torch_state_dict(tree, model='conditional_continuous')
+    assert any(k.startswith('log_snr.') for k in exported)
+    _save(tmp_path / 'learned.pth', exported)
+
+    unet_sd, schedule_sd = split_schedule(
+        load_reference_checkpoint(tmp_path / 'learned.pth'))
+    SRUnet(**kw).load_state_dict(unet_sd, strict=True)
+    log_snr = LearnedLogSNR(16)
+    log_snr.load_state_dict(schedule_sd, strict=True)
+    want = convert_learned_log_snr(strip_wrapper_prefix(
+        load_torch_checkpoint(str(tmp_path / 'learned.pth')))[1])
+    for layer, mod in (('l1', log_snr.net[1]), ('l2', log_snr.net[2].fn[0]),
+                       ('l3', log_snr.net[2].fn[2])):
+        np.testing.assert_array_equal(mod.net.weight.detach().numpy().T,
+                                      want[layer]['kernel'])
+        np.testing.assert_array_equal(mod.net.bias.detach().numpy(),
+                                      want[layer]['bias'])
+    # the JAX tree through state_dict_from_jax gives the same entries
+    from_jax = state_dict_from_jax(tree)
+    for k, v in {**unet_sd, **{'log_snr.' + k: v
+                                for k, v in schedule_sd.items()}}.items():
+        torch.testing.assert_close(from_jax[k], v, atol=0, rtol=0)
+
     _save(tmp_path / 'extra.pth', dict(exported, stray=np.zeros(1, np.float32)))
     with pytest.raises(KeyError, match='stray'):
         load_reference_checkpoint(tmp_path / 'extra.pth')

@@ -122,7 +122,7 @@ def test_port_cli_matches_jax_cli(setup):
 @pytest.mark.parametrize('extra, item', [
     (['--precision', 'int8'], 'Queue 1 item 14'),
     (['--quantize_min_channels', '0'], 'Queue 1 item 14'),
-    (['--deep_cache', '2'], 'Queue 1 item 9'),
+    (['--quant_calibrate'], 'Queue 1 item 14'),
     (['--mesh', '1,1'], 'Queue 1 item 15'),
 ])
 def test_unported_flags_raise(setup, extra, item):
@@ -141,3 +141,128 @@ def test_cuda_device_without_card_raises(setup, monkeypatch):
     assert args.device == 'cuda'
     with pytest.raises(RuntimeError, match='no CUDA device'):
         tinfer.build_sampler(args)
+
+
+FAMILY_YAML = {
+    'conditional_gaussian': """
+model: conditional_gaussian
+timesteps: 12
+sampling_timesteps: 6
+beta_schedule: sigmoid
+unet_dim: 16
+ddpm_unet_dim_mults: '1,2'
+full_attn: 'False,True'
+learned_sinusoidal_cond: false
+num_classes: 3
+image_size: 32
+""",
+    'conditional_elucidated': """
+model: conditional_elucidated
+num_sample_steps: 2
+unet_dim: 16
+ddpm_unet_dim_mults: '1,2'
+full_attn: 'False,True'
+learned_sinusoidal_cond: true
+learned_sinusoidal_dim: 8
+num_classes: 3
+image_size: 32
+""",
+}
+
+
+@pytest.fixture(scope='module')
+def family_setup(setup):
+    """A tiny YAML and a reference-format ``.pth`` for each of the other two
+    families, beside the continuous one of ``setup``."""
+    conf, ckpt, in_dir, root = setup
+    out = {'conditional_continuous': (conf, ckpt)}
+    for model, yaml_text in FAMILY_YAML.items():
+        path = root / f'{model}.yaml'
+        path.write_text(yaml_text)
+        lsc = model != 'conditional_gaussian'
+        params = JaxUnet(dim=16, dim_mults=(1, 2), full_attn=(False, True),
+                         learned_sinusoidal_cond=lsc, learned_sinusoidal_dim=8,
+                         num_classes=3).init(
+            jax.random.PRNGKey(4), jnp.zeros((1, 16, 16, 3)), jnp.zeros((1,)),
+            class_label=jnp.zeros((1,), jnp.int32))['params']
+        sd = export_torch_state_dict({'params': params}, model=model)
+        weights = root / f'{model}.pth'
+        torch.save({'ema_model': {k: torch.from_numpy(np.array(v))
+                                  for k, v in sd.items()}}, weights)
+        out[model] = (path, weights)
+    return out, in_dir, root
+
+
+FAMILY_RUNS = {
+    'gaussian': ('conditional_gaussian', []),
+    # two Karras steps go from sigma 80 to 0.002: the Heun correction divides
+    # by 0.002 and amplifies float32 rounding past 1/255
+    'elucidated': ('conditional_elucidated', ['--num_sample_steps', '4']),
+    'continuous_deep_cache': ('conditional_continuous',
+                              ['--deep_cache', '2', '--deep_cache_depth', '1',
+                               '--num_sample_steps', '4']),
+    'elucidated_deep_cache': ('conditional_elucidated',
+                              ['--deep_cache', '2', '--deep_cache_depth', '1',
+                               '--deep_cache_schedule', '1x1/1x2',
+                               '--num_sample_steps', '4']),
+}
+
+
+@pytest.mark.parametrize('run', sorted(FAMILY_RUNS))
+def test_port_cli_families_match_jax_cli(family_setup, run):
+    """Each family, and DeepCache, through both CLIs on the same weights and
+    replayed noise: x4 PNGs within 1/255 of each other."""
+    confs, in_dir, root = family_setup
+    model, extra = FAMILY_RUNS[run]
+    conf, ckpt = confs[model]
+    from srgd_tpu.infer import main as jax_main
+    jax_out = root / f'jax_{run}'
+    jax_main(_argv(conf, ckpt, in_dir, jax_out, extra))
+
+    port_out = root / f'port_{run}'
+    args = tinfer.parse_args(_argv(conf, ckpt, in_dir, port_out,
+                                   ['--device', 'cpu', *extra]))
+    sampler = tinfer.build_sampler(
+        args, noise_for_seed=lambda seed, device: JaxKeyNoise(
+            jax.random.PRNGKey(seed)))
+    assert type(sampler.wrapper).__name__ == {
+        'conditional_gaussian': 'GaussianDiffusion',
+        'conditional_elucidated': 'ElucidatedDiffusion',
+        'conditional_continuous': 'ContinuousDiffusion'}[model]
+    assert sampler.wrapper.deep_cache_interval == (
+        2 if '--deep_cache' in extra else 0)
+    tinfer.run(args, sampler)
+    for name in ('a_out.png', 'b_out.png'):
+        want, got = _png(jax_out / name), _png(port_out / name)
+        assert got.shape == want.shape == (64, 64, 3)
+        assert np.abs(got - want).max() <= 1
+
+
+@pytest.mark.parametrize('model', ['conditional_continuous',
+                                   'conditional_gaussian',
+                                   'conditional_elucidated'])
+def test_cli_flags_plumb_to_wrapper(family_setup, model):
+    """The DeepCache flags reach the wrapper, and ``--no_dpmpp_solver``
+    reaches ``conf.use_dpmpp_solver`` and the elucidated wrapper; the
+    continuous and gaussian families clear it, as the reference does."""
+    confs, in_dir, root = family_setup
+    conf, ckpt = confs[model]
+    flags = ['--deep_cache', '3', '--deep_cache_depth', '1',
+             '--deep_cache_schedule', '0.5x3/0.5x1']
+    for dpmpp in (True, False):
+        args = tinfer.parse_args(
+            _argv(conf, ckpt, in_dir, root / 'never',
+                  ['--device', 'cpu', *flags,
+                   *([] if dpmpp else ['--no_dpmpp_solver'])]))
+        assert args.use_dpmpp_solver is dpmpp
+        w = tinfer.build_sampler(args).wrapper
+        assert (w.deep_cache_interval, w.deep_cache_depth,
+                w.deep_cache_schedule) == (3, 1, '0.5x3/0.5x1')
+        if model == 'conditional_elucidated':
+            assert w.use_dpmpp_solver is dpmpp
+        else:
+            assert not hasattr(w, 'use_dpmpp_solver')
+    args = tinfer.parse_args(_argv(conf, ckpt, in_dir, root / 'never',
+                                   ['--device', 'cpu']))
+    assert tinfer.build_sampler(args).wrapper.deep_cache_interval == 0
+    assert not (root / 'never').exists()

@@ -38,6 +38,13 @@ slice_ = chip_smoke.phase_slice(torch, cpu, size=40, tile_size=32, steps=2,
 slice_pallas = chip_smoke.phase_slice_pallas(
     torch, cpu, size=40, tile_size=32, steps=2, batch_size=4, pair_rows=64,
     **net)
+deep_cache = chip_smoke.phase_deep_cache(torch, cpu, size=40, tile_size=32,
+                                        steps=4, batch_size=4, depth=1,
+                                        forward_iters=1, **net)
+families = chip_smoke.phase_families(
+    torch, cpu, size=40, tile_size=32, batch_size=4, dpmpp_size=32,
+    unet_dim=16, ddpm_unet_dim_mults='1,2', full_attn='False,True',
+    learned_sinusoidal_dim=8, learned_schedule_net_hidden_dim=16)
 bench = chip_smoke.phase_bench(torch, cpu, lr_size=10, tile_size=32,
                                batch_size=4, forward_iters=1, **net)
 profile = chip_smoke.phase_profile(torch, cpu, tile_size=32, batch_size=2,
@@ -61,13 +68,15 @@ sampler = infer.build_sampler(args)
 print(json.dumps({
     'smoke_imported': smoke_imported, 'port_imported': foreign(),
     'sampler': [type(sampler.wrapper).__name__, sampler.wrapper.sampler],
-    'ok': [kernels['ok'], slice_['ok'], slice_pallas['ok'], bench['ok'],
-           profile['ok']],
+    'ok': [kernels['ok'], slice_['ok'], slice_pallas['ok'], deep_cache['ok'],
+           families['ok'], bench['ok'], profile['ok']],
     'slice': slice_, 'slice_pallas': slice_pallas, 'bench': bench,
+    'deep_cache': deep_cache, 'families': families,
     'kernel_cases': [[c['kernel'], c['b'], c.get('film'), c['dtype'], c['n'],
                       c['bitwise_repeat']] for c in kernels['cases']],
     'profile': profile,
-    'summary': chip_smoke.summary(kernels, slice_, slice_pallas)}))
+    'summary': chip_smoke.summary(kernels, slice_, slice_pallas, deep_cache,
+                                  families)}))
 """
 
 TINY_YAML = """
@@ -101,7 +110,7 @@ def test_port_and_chip_smoke_phases_import_no_jax(rehearsal):
     assert rep['smoke_imported'] == [], rep['smoke_imported']
     assert rep['port_imported'] == [], rep['port_imported']
     assert rep['sampler'] == ['ContinuousDiffusion', 'dpmpp']
-    assert rep['ok'] == [True] * 5
+    assert rep['ok'] == [True] * 7
     s = rep['slice']
     # downs_0_2 and ups_1_2 are linear; downs_1_2, mid_attn and ups_0_2 full
     assert s['forwards'] > 0
@@ -126,6 +135,49 @@ def test_rehearsed_second_slice_routes_to_the_second_kernel_set(rehearsal):
     assert 0 < s['attention_block_rel_diff_vs_default_net'] <= 0.05
     assert s['entry_pair']['drive_launches'] == 0
     assert all(s['checks'].values()), s['checks']
+
+
+def test_rehearsed_deep_cache_phase_splits_the_net(rehearsal):
+    """Depth 1 on the 2-stage net: the cached forward runs stage 0 and the
+    final block only, so it keeps the two stage-0 linear attentions and 10
+    of the 22 Blocks; the fresh cache repeats the full forward's bits on
+    the CPU; the tiled run at interval 2 alternates full and cached steps."""
+    dc = rehearsal['deep_cache']
+    assert dc['ok'] and dc['depth'] == 1
+    default, pallas = dc['nets']['default'], dc['nets']['use_pallas']
+    assert default['per_cached_forward'] == {
+        'linattn_block': 2, 'attn_block': 0, 'groupnorm_silu': 0,
+        'attention': 0, 'linear_attention': 0, 'linear_attention_qkv': 0}
+    assert pallas['per_cached_forward'] == {
+        'linattn_block': 0, 'attn_block': 0, 'groupnorm_silu': 10,
+        'attention': 0, 'linear_attention': 0, 'linear_attention_qkv': 2}
+    for net in (default, pallas):
+        assert net['fresh_cache_bitwise'] and net['fresh_cache_max_abs_diff'] == 0
+        assert net['cache_shape'] == [4, 16, 32, 32]
+        # 4 steps over 3 even and 1 odd chunk of 4 tiles: counters 0, 0, 1,
+        # 1; interval 2 refreshes at 0
+        assert net['expected_forwards'] == [4, 4]
+        assert (net['forwards'], net['cached_forwards']) == (8, 4)
+        assert net['full_forward_ms'] > 0 and net['cached_forward_ms'] > 0
+        assert all(net['checks'].values()), net['checks']
+
+
+def test_rehearsed_families_phase_runs_every_family(rehearsal):
+    fam = rehearsal['families']
+    assert fam['ok']
+    runs = fam['runs']
+    assert {k: v['wrapper'] for k, v in runs.items()} == {
+        'gaussian_ddim_tiled': 'GaussianDiffusion',
+        'elucidated_heun_tiled': 'ElucidatedDiffusion',
+        'elucidated_dpmpp': 'ElucidatedDiffusion',
+        'continuous_learned_tiled': 'ContinuousDiffusion'}
+    # one forward per tile chunk (3 even, 1 odd) a step; Heun two a step
+    # but the last; DPM++ one a step on one tile
+    assert {k: v['forwards'] for k, v in runs.items()} == {
+        'gaussian_ddim_tiled': 8, 'elucidated_heun_tiled': 15,
+        'elucidated_dpmpp': 4, 'continuous_learned_tiled': 4}
+    for run in runs.values():
+        assert all(run['checks'].values()), run['checks']
 
 
 def test_rehearsed_summary_lists_six_kernels_with_every_key(rehearsal):

@@ -125,10 +125,17 @@ def test_tiled_sample_is_chunk_invariant(pair):
 
 
 def test_unported_options_raise(pair):
+    """Every option of the JAX wrapper is ported; the combinations the JAX
+    package refuses stay refused: dpmpp with DeepCache, the learned schedule
+    without its net, and both guidance scales at once."""
     _, _, net = pair
-    for kw in (dict(deep_cache_interval=2), dict(noise_schedule='learned')):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            ContinuousDiffusion(net, image_size=16, **kw)
+    with pytest.raises(NotImplementedError, match='dpmpp'):
+        ContinuousDiffusion(net, image_size=16, sampler='dpmpp',
+                            deep_cache_interval=2)
+    with pytest.raises(ValueError, match='LearnedLogSNR'):
+        ContinuousDiffusion(net, image_size=16, noise_schedule='learned')
+    d = ContinuousDiffusion(net, image_size=16, deep_cache_interval=2)
+    assert d.deep_cache_depth == 2 and d.deep_cache_schedule == ''
     d = ContinuousDiffusion(net, image_size=16)
     with pytest.raises(NotImplementedError, match='cond_scale and class'):
         d.sample(torch.zeros(1, 16, 16, 3), cond_scale=2.0,

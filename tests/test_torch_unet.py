@@ -162,10 +162,15 @@ def test_build_from_config_maps_the_kernel_flags():
                ddpm_unet_dim_mults='1,2', full_attn='False,True'),
         device='meta')
     assert not any(getattr(m, 'use_pallas', False) for m in default.modules())
-    for bad in (dict(quantize='w8a8'), dict(remat_unet=True),
-                dict(deep_cache_interval=2)):
+    for bad in (dict(quantize='w8a8'), dict(remat_unet=True)):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             build_unet_from_config(Config(**bad), device='meta')
+    # DeepCache is a sampler option: the net is the same
+    cached = build_unet_from_config(
+        Config(model='conditional_continuous', unet_dim=8,
+               ddpm_unet_dim_mults='1,2', full_attn='False,True',
+               deep_cache_interval=2, deep_cache_depth=1), device='meta')
+    assert sorted(cached.state_dict()) == sorted(default.state_dict())
 
 
 def test_class_mask_null_matches_jax_and_equals_no_label():
