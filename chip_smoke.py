@@ -55,10 +55,21 @@ Phases, each printed as one JSON line:
    through tiled DDIM, ``conditional_elucidated`` through tiled Heun and
    untiled DPM++ on one 256 tile, and the continuous family on the learned
    log-SNR schedule; the output checks, and 6 / 3 launches every forward.
-8. bench: one U-Net forward (b = 8 tiles of 256 px) and one even and one odd
+8. serve: the port's serving daemon (``srgd_tpu_torch.serve``) in-process
+   from the serving YAML (w8a8 cleared, bf16, default net, random weights,
+   DDIM eta 1 at 25 steps) with its HTTP front-end on 127.0.0.1: two seeded
+   labelled requests give the same PNG bytes at 4x, two seedless requests
+   with labels 0 and 1 sample as one batch, a guided request changes the
+   pixels, guidance on both axes and a garbage body get 400, /healthz
+   answers busy within 2 s mid-sample, /stats and /metrics agree, every
+   forward launched 6 / 3, the forwards are those of the tile geometry,
+   device memory does not grow across requests, and a watch pass writes
+   two outputs as one batch; ms and forwards per request alone and
+   coalesced, output MPix/s and peak device memory.
+9. bench: one U-Net forward (b = 8 tiles of 256 px) and one even and one odd
    step of a 512-px LR input (2304 canvas), for the default net and for the
    ``use_pallas`` net.
-9. profile, only with ``--profile``: ``torch.profiler`` over three forwards of
+10. profile, only with ``--profile``: ``torch.profiler`` over three forwards of
    each net, device time per kernel name, per kernel of the port (summed
    over all its launches and shapes, and its device kernels per forward)
    and per group of PyTorch's own kernels, and the device time of single
@@ -152,10 +163,15 @@ def read_counts() -> dict:
     return {name: getattr(*_counter(name)) for name in KERNELS}
 
 
-def phase_device(torch):
-    smi = subprocess.run(
+def _nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
         capture_output=True, text=True, check=True).stdout.strip()
+
+
+def phase_device(torch):
+    smi = _nvidia_smi()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return {'phase': 'device', 'nvidia_smi': smi,
@@ -679,15 +695,18 @@ def phase_slice_pallas(torch, device, *, size=512, tile_size=256, steps=4,
             'out_mean': out.mean().item()}
 
 
-def _expected_forwards(size, tile_size, batch_size, steps, mask):
+def _expected_forwards(shape, tile_size, batch_size, steps, mask):
     """(full, cached) U-Net forwards of a tiled run of ``steps`` steps on a
-    size x size condition: one per tile chunk of the step's grid parity,
-    cached where the per-parity refresh ``mask`` is False."""
+    condition of ``shape`` (canvases, height, width): one per tile chunk of
+    the step's grid parity, the tiles of all canvases pooled, cached where
+    the per-parity refresh ``mask`` is False."""
     from srgd_tpu_torch.diffusion.base import pick_chunk
     from srgd_tpu_torch.tiling import make_geometry
-    geom = make_geometry(size, size, tile_size)
+    canvases, height, width = shape
+    geom = make_geometry(height, width, tile_size)
     chunks = [-(-n // pick_chunk(n, batch_size))
-              for n in (geom.n_tiles_even, geom.n_tiles_odd)]
+              for n in (geom.n_tiles_even * canvases,
+                        geom.n_tiles_odd * canvases)]
     full = sum(chunks[i % 2] for i in range(steps) if mask[i // 2])
     cached = sum(chunks[i % 2] for i in range(steps) if not mask[i // 2])
     return full, cached
@@ -715,7 +734,8 @@ def phase_deep_cache(torch, device, *, size=512, tile_size=256, steps=4,
     on_card = device.type == 'cuda'
     cond, label = _slice_inputs(torch, device, size, seed)
     mask = refresh_mask('', 2, (steps + 1) // 2 + 1)
-    want_forwards = _expected_forwards(size, tile_size, batch_size, steps, mask)
+    want_forwards = _expected_forwards((1, size, size), tile_size, batch_size,
+                                       steps, mask)
     res = {'phase': 'deep_cache', 'depth': depth, 'interval': 2,
            'steps': steps, 'nets': {},
            'launches': dict.fromkeys(KERNELS, 0)}
@@ -839,6 +859,282 @@ def phase_families(torch, device, *, size=512, tile_size=256, batch_size=8,
                 'out_mean': out.mean().item()}
         del wrapper
     res['ok'] = all(r['ok'] for r in res['runs'].values())
+    return res
+
+
+SERVING_YAML = 'conf/conditional_continuous_linear_df8kost_dim128_tpu_serving.yaml'
+
+
+def _http(port, method, path, body=None):
+    """(status, content type, body) of one request to the local daemon."""
+    import http.client
+    conn = http.client.HTTPConnection('127.0.0.1', port, timeout=600)
+    try:
+        conn.request(method, path, body=body)
+        r = conn.getresponse()
+        return r.status, r.getheader('Content-Type'), r.read()
+    finally:
+        conn.close()
+
+
+def _png(w, h, seed):
+    """A random w x h RGB image as PNG bytes."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(np.random.default_rng(seed).integers(
+        0, 256, (h, w, 3), dtype=np.uint8)).save(buf, format='PNG')
+    return buf.getvalue()
+
+
+def _decoded(body):
+    import io
+
+    import numpy as np
+    from PIL import Image
+    return np.asarray(Image.open(io.BytesIO(body)))
+
+
+def phase_serve(torch, device, *, conf=SERVING_YAML, seeded=(96, 80),
+                square=128, watch=(100, 60), lr_bucket=64, tile_size=256,
+                batch_size=8, steps=25, window=0.5):
+    """The port's serving daemon in-process: the serving YAML (w8a8
+    cleared: the port serves bf16), random weights from its seed, the
+    default net, the fast profile (DDIM, eta 1, ``steps`` steps), its HTTP
+    front-end on 127.0.0.1 in a thread. Sizes are (w, h) of the LR inputs.
+    Checks: two seeded labelled requests give the same bytes at 4x; two
+    seedless requests with labels 0 and 1 sent at once sample as one batch;
+    a guided request changes the pixels, guidance on both axes and a
+    garbage body get 400; /healthz answers within 2 s, busy, while a
+    seeded request samples; /stats and /metrics agree with the traffic;
+    every forward launched what the default net routes to, and the forwards
+    are those the tile geometry gives; device memory after the third seeded
+    request equals that after the first; one watch pass writes two 4x
+    outputs as one batch."""
+    import gc
+    import os
+    import tempfile
+    import threading
+
+    import numpy as np
+    from PIL import Image
+
+    from srgd_tpu_torch.serve import Server, bucket_pad, parse_args
+    on_card = device.type == 'cuda'
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.TemporaryDirectory()
+    in_dir, out_dir = (os.path.join(work.name, d) for d in ('in', 'out'))
+    os.makedirs(in_dir)
+
+    def memory():
+        """(bytes the caching allocator has handed out, the same without
+        cuBLAS's cached workspaces). PyTorch keeps one workspace per cuBLAS
+        handle and stream, and a handle per thread: the batch worker's
+        first sample and a handler thread that starts while another still
+        holds its handle each add one, whatever the request."""
+        if not on_card:
+            return 0, 0
+        gc.collect()
+        raw = torch.cuda.memory_allocated()
+        torch._C._cuda_clearCublasWorkspaces()
+        return raw, torch.cuda.memory_allocated()
+
+    mem_start = memory()
+    args = parse_args([
+        '-c', os.path.join(here, conf), '-m', '', '--mode', 'both',
+        '--device', device.type, '--input_dir', in_dir, '--output_dir',
+        out_dir, '--port', '0', '--lr_bucket', str(lr_bucket),
+        '--tile_size', str(tile_size), '--batch_size', str(batch_size),
+        '--test_label', '0', '--continuous_sampler', 'ddim', '--ddim_eta',
+        '1.0', '--num_sample_steps', str(steps), '--coalesce_window',
+        str(window), '--max_batch_images', '2', '--warmup_sizes',
+        str(square)])
+    server = Server(args)
+    wrapper = server.sampler.wrapper
+    httpd = server.make_http_server()
+    port = httpd.server_address[1]
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+
+    def canvas(w, h):
+        bw, bh = bucket_pad(Image.new('RGB', (w, h)), lr_bucket)[0].size
+        return 4 * bh, 4 * bw
+
+    forwards = 0
+    net_forward = wrapper.net.forward
+
+    def counted(*a, **k):
+        nonlocal forwards
+        forwards += 1
+        return net_forward(*a, **k)
+
+    checks, res = {}, {'phase': 'serve', 'steps': steps, 'port': port,
+                       'card': _nvidia_smi() if on_card else None}
+    try:
+        traffic = ('served', 'errors', 'mpix')
+        before = {k: server.stats[k] for k in traffic}
+        server.warmup()
+        checks['warmup_keeps_counters'] = before == {
+            k: server.stats[k] for k in traffic}
+        res['net'] = {'dtype': str(wrapper.net.dtype),
+                      'sampler': wrapper.sampler, 'ddim_eta': wrapper.ddim_eta,
+                      'model_info': server.model_info}
+        checks['bf16_default_net'] = (
+            wrapper.net.dtype == torch.bfloat16
+            and server.model_info['precision'] == 'bf16'
+            and not wrapper.net.downs[0][2].use_pallas)
+
+        wrapper.net.forward = counted
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        want = []   # (canvases, height, width) of every sample run
+
+        def timed(fn):
+            f0, t0 = forwards, time.perf_counter()
+            out = fn()
+            return out, (time.perf_counter() - t0) * 1e3, forwards - f0
+
+        # same seed, same label: the same bytes (re-seeded per request)
+        body = _png(*seeded, seed=1)
+        path = '/v1/sr?seed=5&label=1'
+        first, first_ms, _ = timed(lambda: _http(port, 'POST', path, body))
+        mem_first = memory()
+        second, alone_ms, alone_fw = timed(
+            lambda: _http(port, 'POST', path, body))
+        want += [(1, *canvas(*seeded))] * 2
+        sr_size = (4 * seeded[0], 4 * seeded[1])
+        checks['seeded_png_4x'] = all(
+            r[0] == 200 and r[1] == 'image/png'
+            and _decoded(r[2]).shape[1::-1] == sr_size for r in (first, second))
+        checks['seeded_same_bytes'] = first[2] == second[2]
+
+        # two seedless requests with labels 0 and 1 at once: one batch
+        b0 = dict(server.batcher.stats)
+        pair = [None, None]
+        sq = [_png(square, square, seed=2 + i) for i in range(2)]
+
+        def send(i):
+            pair[i] = _http(port, 'POST', f'/v1/sr?label={i}', sq[i])
+
+        def both():
+            threads = [threading.Thread(target=send, args=(i,))
+                       for i in range(2)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+        _, pair_ms, pair_fw = timed(both)
+        want.append((2, *canvas(square, square)))
+        checks['coalesced_one_batch'] = (
+            server.batcher.stats['batches'] - b0['batches'] == 1
+            and server.batcher.stats['batched_images']
+            - b0['batched_images'] == 2)
+        checks['coalesced_png_4x'] = all(
+            r is not None and r[0] == 200
+            and _decoded(r[2]).shape[:2] == (4 * square, 4 * square)
+            for r in pair)
+        checks['coalesced_outputs_differ'] = pair[0][2] != pair[1][2]
+
+        # guidance steers the pixels; both axes and garbage are refused
+        guided = _http(port, 'POST', path + '&class_cond_scale=2', body)
+        want.append((1, *canvas(*seeded)))
+        checks['guided_changes_pixels'] = guided[0] == 200 and not (
+            np.array_equal(_decoded(guided[2]), _decoded(first[2])))
+        both_axes = _http(port, 'POST',
+                          '/v1/sr?cond_scale=1.5&class_cond_scale=1.5', body)
+        garbage = _http(port, 'POST', '/v1/sr', b'garbage')
+        checks['both_axes_400'] = both_axes[0] == 400
+        checks['garbage_400'] = garbage[0] == 400
+
+        # health while a seeded request samples (the third one)
+        third = []
+        busy = threading.Thread(
+            target=lambda: third.append(_http(port, 'POST', path, body)))
+        busy.start()
+        deadline = time.time() + 60
+        while not server.lock.locked() and time.time() < deadline:
+            time.sleep(0.001)
+        health, health_ms, _ = timed(lambda: _http(port, 'GET', '/healthz'))
+        busy.join(timeout=600)
+        want.append((1, *canvas(*seeded)))
+        health_json = json.loads(health[2])
+        checks['healthz_busy_within_2s'] = (
+            health[0] == 200 and health_json['busy'] is True
+            and health_ms < 2000)
+        checks['third_seeded_same_bytes'] = bool(third) and third[0][2] == first[2]
+        mem_third = memory()
+        checks['no_memory_growth'] = mem_third[1] == mem_first[1]
+
+        # the counters: 6 images served, 2 requests refused
+        stats = json.loads(_http(port, 'GET', '/stats')[2])
+        metrics = {line.split()[0]: float(line.split()[1])
+                   for line in _http(port, 'GET', '/metrics')[2].decode()
+                   .splitlines() if not line.startswith('#')}
+        checks['counters_agree'] = (
+            stats['served'] == metrics['srgd_served'] == 6
+            and stats['errors'] == metrics['srgd_errors'] == 2
+            and stats['batches'] == metrics['srgd_batches']
+            and stats['sample_inflight_seconds']
+            == metrics['srgd_sample_inflight_seconds'] == 0
+            and metrics['srgd_busy'] == 0)
+
+        # one watch pass over two same-geometry files: one batch
+        for i in range(2):
+            with open(os.path.join(in_dir, f'w{i}.png'), 'wb') as fp:
+                fp.write(_png(*watch, seed=5 + i))
+        written, watch_ms, watch_fw = timed(server.process_dir_once)
+        want.append((2, *canvas(*watch)))
+        outs = sorted(os.listdir(out_dir))
+        checks['watch_one_batch'] = (
+            written == 2 and server.stats.get('watch_batches') == 1
+            and outs == ['w0_out.png', 'w1_out.png']
+            and all(Image.open(os.path.join(out_dir, o)).size
+                    == (4 * watch[0], 4 * watch[1]) for o in outs))
+
+        if on_card:
+            torch.cuda.synchronize()
+        launches = read_counts()
+    finally:
+        wrapper.net.forward = net_forward
+        httpd.shutdown()
+        httpd.server_close()
+        server.batcher.shutdown()
+        work.cleanup()
+
+    mask = np.ones(steps, bool)
+    expected_forwards = sum(
+        _expected_forwards(s, tile_size, batch_size, steps, mask)[0]
+        for s in want)
+    expected, per_forward = _expected_launches(wrapper.net,
+                                               forwards * on_card)
+    checks['forwards_follow_geometry'] = forwards == expected_forwards
+    for name in KERNELS:
+        checks[f'{name}_launches'] = launches[name] == expected[name]
+    out_mpix = (sr_size[0] * sr_size[1]) / 1e6
+    res.update({
+        'ok': all(checks.values()), 'checks': checks,
+        'forwards': forwards, 'expected_forwards': expected_forwards,
+        'launches': launches, 'per_forward': per_forward,
+        'first_request_ms': first_ms,
+        'alone': {'ms_per_request': alone_ms, 'forwards_per_request': alone_fw,
+                  'canvas': list(canvas(*seeded)),
+                  'out_mpix_per_s': out_mpix / alone_ms * 1e3},
+        'coalesced': {'ms_per_request': pair_ms / 2,
+                      'forwards_per_request': pair_fw / 2,
+                      'canvas': list(canvas(square, square)),
+                      'out_mpix_per_s': 2 * (4 * square) ** 2 / 1e6
+                      / pair_ms * 1e3},
+        'watch': {'ms': watch_ms, 'forwards': watch_fw,
+                  'canvas': list(canvas(*watch))},
+        'healthz_ms_while_busy': health_ms,
+        'memory_allocated_before_server': mem_start,
+        'memory_allocated_after_first': mem_first,
+        'memory_allocated_after_third': mem_third,
+        'max_memory_allocated': (torch.cuda.max_memory_allocated()
+                                 if on_card else None),
+        'stats': stats})
     return res
 
 
@@ -1160,8 +1456,9 @@ def phase_profile(torch, device, *, tile_size=256, batch_size=8, seed=0,
 
 def summary(kernels, *paths):
     """One entry per kernel: ``launches``, its launches on the sampling
-    paths (``slice``, ``slice_pallas``, ``deep_cache``, ``families``; each
-    run counted from 0 around that run alone), the largest error over its
+    paths (``slice``, ``slice_pallas``, ``deep_cache``, ``families``,
+    ``serve``; each run counted from 0 around that run alone), the largest
+    error over its
     cases, and the times and bound of its first bfloat16 case.
     ``drive_launches`` counts launches outside any path: no module calls
     ``linear_attention``, so its ``launches`` is 0 and the one direct call of
@@ -1205,7 +1502,7 @@ def main() -> int:
     emit(dev)
     emit(phase_build())
     todo = [phase_kernels, phase_slice, phase_slice_pallas, phase_deep_cache,
-            phase_families, phase_bench]
+            phase_families, phase_serve, phase_bench]
     if '--profile' in sys.argv[1:]:
         todo.append(phase_profile)
     phases = []
@@ -1213,7 +1510,7 @@ def main() -> int:
         phases.append(phase(torch, device))
         emit(phases[-1])
         torch.cuda.synchronize()
-    table = summary(phases[0], *phases[1:5])
+    table = summary(phases[0], *phases[1:6])
     emit(table)
     failed = [p['phase'] for p in phases if not p['ok']]
     # a kernel no module calls is held to its direct drive instead

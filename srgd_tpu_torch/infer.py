@@ -144,15 +144,19 @@ class Sampler:
         self.wrapper, self.opts, self.device = wrapper, opts, device
         self.noise_for_seed = noise_for_seed
 
-    def sample(self, cond_np: np.ndarray, label, seed: int) -> np.ndarray:
-        """cond_np: (B, H, W, C) in [0, 1]; label: None or an int applied to
-        every canvas. Returns (B, H, W, C) in [0, 1] as numpy."""
-        o = self.opts
+    def sample(self, cond_np: np.ndarray, label, seed: int,
+               guidance: dict | None = None) -> np.ndarray:
+        """cond_np: (B, H, W, C) in [0, 1]; label: None, an int applied to
+        every canvas, or a per-canvas (B,) array. ``guidance`` overrides
+        ``cond_scale``, ``class_cond_scale`` and the ``*_start_steps`` for
+        this call only. Returns (B, H, W, C) in [0, 1] as numpy."""
+        o = {**self.opts, **(guidance or {})}
         cond = torch.from_numpy(np.ascontiguousarray(cond_np)).to(self.device)
         lab = None
         if label is not None:
-            lab = torch.full((cond.shape[0],), int(label), dtype=torch.long,
-                             device=self.device)
+            lab = torch.from_numpy(np.broadcast_to(
+                np.asarray(label, np.int64).reshape(-1),
+                (cond.shape[0],)).copy()).to(self.device)
         out = self.wrapper.tiled_sample(
             cond, lab, batch_size=o['batch_size'], tile_size=o['tile_size'],
             tile_stride=o['tile_stride'], cond_scale=o['cond_scale'],
@@ -181,14 +185,18 @@ def sr_target_image(image, sampler: Sampler, scale: int = 4, test_label=None,
     return sr_img
 
 
-def pending_outputs(input_dir, output_dir, start_index=0, end_index=None):
+def pending_outputs(input_dir, output_dir, start_index=0, end_index=None,
+                    verbose_skip=False):
     """(input_path, output_path) of the sorted inputs whose output does not
-    exist yet; output names rewrite '.png' to '_out.png'."""
+    exist yet; output names rewrite '.png' to '_out.png'. ``verbose_skip``
+    prints the reference CLI's 'skip' for each existing output (the batch
+    CLI's, not the polling daemon's)."""
     for filename in sorted(glob.glob(f'{input_dir}/*'))[start_index:end_index]:
         save_filename = os.path.basename(filename).replace('.png', '_out.png')
         save_path = os.path.join(output_dir, save_filename)
         if os.path.exists(save_path):
-            print('skip')
+            if verbose_skip:
+                print('skip')
             continue
         yield filename, save_path
 
@@ -200,7 +208,8 @@ def batch_sr_target_images(input_dir, output_dir, sampler: Sampler, scale=4,
     print(f'save images at: {output_dir}')
     os.makedirs(output_dir, exist_ok=True)
     for filename, save_path in pending_outputs(input_dir, output_dir,
-                                               start_index, end_index):
+                                               start_index, end_index,
+                                               verbose_skip=True):
         image = try_open_image(filename)
         if image is None:
             print('Invalid image or unable to open image:', filename)
@@ -248,7 +257,7 @@ def build_sampler(args, noise_for_seed=GeneratorNoise) -> Sampler:
                 class_cond_scale=args.class_cond_scale,
                 class_guidance_start_steps=args.class_guidance_start_steps,
                 generation_start_steps=args.generation_start_steps,
-                num_sample_steps=args.num_sample_steps)
+                num_sample_steps=args.num_sample_steps, model=conf.model)
     return Sampler(wrapper, opts, device, noise_for_seed)
 
 

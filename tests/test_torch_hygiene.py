@@ -45,6 +45,9 @@ families = chip_smoke.phase_families(
     torch, cpu, size=40, tile_size=32, batch_size=4, dpmpp_size=32,
     unet_dim=16, ddpm_unet_dim_mults='1,2', full_attn='False,True',
     learned_sinusoidal_dim=8, learned_schedule_net_hidden_dim=16)
+serve = chip_smoke.phase_serve(torch, cpu, conf=sys.argv[1], seeded=(12, 10),
+                               square=16, watch=(13, 7), lr_bucket=8,
+                               tile_size=32, batch_size=4, steps=2)
 bench = chip_smoke.phase_bench(torch, cpu, lr_size=10, tile_size=32,
                                batch_size=4, forward_iters=1, **net)
 profile = chip_smoke.phase_profile(torch, cpu, tile_size=32, batch_size=2,
@@ -69,14 +72,14 @@ print(json.dumps({
     'smoke_imported': smoke_imported, 'port_imported': foreign(),
     'sampler': [type(sampler.wrapper).__name__, sampler.wrapper.sampler],
     'ok': [kernels['ok'], slice_['ok'], slice_pallas['ok'], deep_cache['ok'],
-           families['ok'], bench['ok'], profile['ok']],
+           families['ok'], serve['ok'], bench['ok'], profile['ok']],
     'slice': slice_, 'slice_pallas': slice_pallas, 'bench': bench,
-    'deep_cache': deep_cache, 'families': families,
+    'deep_cache': deep_cache, 'families': families, 'serve': serve,
     'kernel_cases': [[c['kernel'], c['b'], c.get('film'), c['dtype'], c['n'],
                       c['bitwise_repeat']] for c in kernels['cases']],
     'profile': profile,
     'summary': chip_smoke.summary(kernels, slice_, slice_pallas, deep_cache,
-                                  families)}))
+                                  families, serve)}))
 """
 
 TINY_YAML = """
@@ -110,7 +113,7 @@ def test_port_and_chip_smoke_phases_import_no_jax(rehearsal):
     assert rep['smoke_imported'] == [], rep['smoke_imported']
     assert rep['port_imported'] == [], rep['port_imported']
     assert rep['sampler'] == ['ContinuousDiffusion', 'dpmpp']
-    assert rep['ok'] == [True] * 7
+    assert rep['ok'] == [True] * 8
     s = rep['slice']
     # downs_0_2 and ups_1_2 are linear; downs_1_2, mid_attn and ups_0_2 full
     assert s['forwards'] > 0
@@ -178,6 +181,35 @@ def test_rehearsed_families_phase_runs_every_family(rehearsal):
         'elucidated_dpmpp': 4, 'continuous_learned_tiled': 4}
     for run in runs.values():
         assert all(run['checks'].values()), run['checks']
+
+
+def test_rehearsed_serve_phase_drives_the_daemon(rehearsal):
+    """The daemon on the CPU: 2 steps on a 64 canvas of 9 even and 4 odd
+    tiles of 32 px in chunks of 4 make 3 + 1 forwards a request alone; the
+    coalesced pair's 18 and 8 tiles make 5 + 2, 3.5 a request; the watch
+    pair's 32x64 canvases (padded to 64x96: 6 + 2 tiles a canvas) 3 + 1."""
+    sv = rehearsal['serve']
+    assert sv['ok'] and all(sv['checks'].values()), sv['checks']
+    assert sv['alone']['forwards_per_request'] == 4
+    assert sv['coalesced']['forwards_per_request'] == 3.5
+    assert sv['watch']['forwards'] == 4
+    # 3 seeded + 1 guided alone, the coalesced pair, the watch pair
+    assert sv['forwards'] == sv['expected_forwards'] == 4 * 4 + 7 + 4
+    assert sv['stats']['served'] == 6 and sv['stats']['errors'] == 2
+    assert set(sv['launches'].values()) == {0}
+    assert sv['healthz_ms_while_busy'] < 2000
+
+
+def test_server_on_cuda_without_a_card_raises(monkeypatch):
+    """``--device cuda`` (the default) with no card raises: no CPU
+    fallback."""
+    from srgd_tpu_torch import serve
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    args = serve.parse_args(['-c', os.path.join(REPO, 'conf', _yaml_cases()[0]),
+                             '-m', '', '--mode', 'http'])
+    assert args.device == 'cuda'
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        serve.Server(args)
 
 
 def test_rehearsed_summary_lists_six_kernels_with_every_key(rehearsal):
