@@ -66,10 +66,25 @@ Phases, each printed as one JSON line:
    device memory does not grow across requests, and a watch pass writes
    two outputs as one batch; ms and forwards per request alone and
    coalesced, output MPix/s and peak device memory.
-9. bench: one U-Net forward (b = 8 tiles of 256 px) and one even and one odd
+9. train: ``srgd_tpu_torch.train.loop.main`` on the training YAML
+   (``conf/trained_evidence_dim128_synth.yaml``: dim 128 at full width,
+   256-px crops, batch 8, bf16 over float32 parameters, AdamW, EMA) over 40
+   procedural 320-px PNGs made from a seed: 6 steps with a checkpoint every
+   3, then a second call resumes to step 8. Every loss finite; the
+   gradients of the first linear attention's ``to_qkv`` and of
+   ``init_conv`` finite and not zero; 6 / 3 launches every train forward
+   and none in the backward; the step counter, optimizer state and
+   best_score come back; the checkpoint samples through
+   ``factory.get_model``; a ``use_pallas`` net's backward raises; both
+   ``autograd.Function``s' gradients equal the plain version's at their
+   flagship shapes (b = 8, bf16 and f32); ``remat_unet`` gives the same
+   first loss with less peak memory. ms per train step, the loop's phase
+   breakdown, the backward recompute's ms per step (profiler ranges), peak
+   memory and the data path (native or PIL).
+10. bench: one U-Net forward (b = 8 tiles of 256 px) and one even and one odd
    step of a 512-px LR input (2304 canvas), for the default net and for the
    ``use_pallas`` net.
-10. profile, only with ``--profile``: ``torch.profiler`` over three forwards of
+11. profile, only with ``--profile``: ``torch.profiler`` over three forwards of
    each net, device time per kernel name, per kernel of the port (summed
    over all its launches and shapes, and its device kernels per forward)
    and per group of PyTorch's own kernels, and the device time of single
@@ -88,6 +103,8 @@ from __future__ import annotations
 
 import itertools
 import json
+import math
+import os
 import subprocess
 import sys
 import time
@@ -1138,6 +1155,342 @@ def phase_serve(torch, device, *, conf=SERVING_YAML, seeded=(96, 80),
     return res
 
 
+TRAIN_YAML = 'conf/trained_evidence_dim128_synth.yaml'
+# (n, c) of the flagship's linear- and full-attention blocks at which the
+# train phase holds each Function's gradients to the plain version's
+TRAIN_GRAD_LIN_SHAPES = ((65536, 128), (4096, 512))
+TRAIN_GRAD_ATTN_SHAPES = ((1024, 512), (1024, 1024))
+
+
+def _synth_pngs(path, n, size, seed):
+    """``n`` procedural ``size``-px RGB PNGs from ``seed``: a colour ramp,
+    rectangles, ellipses and fine noise, the statistics an SR degradation
+    pipeline needs; numpy and PIL only."""
+    import numpy as np
+    from PIL import Image
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    for i in range(n):
+        img = (rng.uniform(0, 1, 3) * xx[..., None]
+               + rng.uniform(0, 1, 3) * yy[..., None]) / 2
+        for _ in range(16):
+            cy, cx = rng.uniform(0, 1, 2)
+            ry, rx = rng.uniform(0.02, 0.2, 2)
+            if rng.uniform() < 0.5:
+                mask = (np.abs(yy - cy) < ry) & (np.abs(xx - cx) < rx)
+            else:
+                mask = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1
+            img[mask] = rng.uniform(0, 1, 3)
+        img = img + rng.normal(0, 0.03, img.shape)
+        Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8)).save(
+            os.path.join(path, f'{i:03d}.png'))
+
+
+def _grad_case(torch, device, kind, b, n, c, dtype, gen):
+    """One Function's gradients against ``torch.autograd`` of its plain
+    version on the same inputs: x in ``dtype``, the gains, weights and
+    bias float32, as the layers pass them. Returns the case's record."""
+    from srgd_tpu_torch.kernels import attn_block as ab
+    from srgd_tpu_torch.kernels import linattn_block as lb
+
+    def rand(*shape, scale=1.0, dt=torch.float32):
+        return (torch.randn(shape, generator=gen, device=device) * scale).to(
+            dt).requires_grad_()
+
+    gains = [1 + rand(c, scale=0.1).detach() for _ in range(2)]
+    if kind == 'linattn_block':
+        inputs = [rand(b, n, c, dt=dtype), gains[0].requires_grad_(),
+                  *(rand(c, 128, scale=c ** -0.5) for _ in range(3)),
+                  rand(128, c, scale=128 ** -0.5), rand(c, scale=0.1),
+                  gains[1].requires_grad_()]
+        fn = lambda *a: lb.linattn_block(*a, dim_head=32)        # noqa: E731
+        plain = lambda *a: lb.linattn_block_plain(*a, dim_head=32)  # noqa
+    else:
+        inputs = [rand(b, n, c, dt=dtype), gains[0].requires_grad_(),
+                  rand(c, 384, scale=c ** -0.5),
+                  rand(128, c, scale=128 ** -0.5), rand(c, scale=0.1)]
+        fn = lambda *a: ab.attn_block(*a, heads=4, dim_head=32)      # noqa
+        plain = lambda *a: ab.attn_block_plain(*a, heads=4, dim_head=32)  # noqa
+    ct = torch.randn((b, n, c), generator=gen, device=device).to(dtype)
+    got = torch.autograd.grad(fn(*inputs), inputs, ct)
+    want = torch.autograd.grad(plain(*inputs), inputs, ct)
+    rel = max(float((g.float() - w.float()).abs().max())
+              / max(float(w.float().abs().max()), 1e-30)
+              for g, w in zip(got, want))
+    return {'kernel': kind, 'b': b, 'n': n, 'c': c,
+            'dtype': str(dtype).split('.')[-1],
+            'bitwise': all(torch.equal(g, w) for g, w in zip(got, want)),
+            'dtypes_kept': all(g.dtype == t.dtype
+                               for g, t in zip(got, inputs)),
+            'max_rel_err': rel,
+            'ok': rel <= TRAIN_GRAD_RTOL and all(
+                g.dtype == t.dtype for g, t in zip(got, inputs))}
+
+
+# the Functions' gradients against the plain version's on the card: the
+# backward is that very recompute, so bit for bit is expected; more than
+# this fraction of the largest gradient entry fails
+TRAIN_GRAD_RTOL = 1e-6
+
+
+class _Records:
+    """Captures the training logger's messages."""
+
+    def __init__(self, name):
+        import logging
+        self.messages = []
+        self.logger = logging.getLogger(name)
+        self.handler = logging.Handler()
+        self.handler.emit = lambda r: self.messages.append(r.getMessage())
+
+    def __enter__(self):
+        import logging
+        self.level = self.logger.level
+        self.logger.addHandler(self.handler)
+        self.logger.setLevel(logging.INFO)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.level)
+        return False
+
+
+def _peak_bytes(torch, device):
+    return torch.cuda.max_memory_allocated(device) if device.type == 'cuda' \
+        else 0
+
+
+def _reset_peak(torch, device):
+    if device.type == 'cuda':
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def phase_train(torch, device, *, conf=TRAIN_YAML, images=40, image_size=320,
+                steps=6, save_every=3, resume_to=8, remat_steps=2,
+                grad_b=8, grad_lin_shapes=TRAIN_GRAD_LIN_SHAPES,
+                grad_attn_shapes=TRAIN_GRAD_ATTN_SHAPES, pallas_size=64,
+                seed=0):
+    """Training through ``srgd_tpu_torch.train.loop.main``: the training
+    YAML at full width (dim 128, mults 1,2,4,8, 256-px HR and 64-px LR
+    crops, batch 8, bf16 over float32 parameters, AdamW, cosine with
+    warmup, EMA 0.999) on ``images`` procedural ``image_size``-px PNGs made
+    here from ``seed``; ``steps`` steps with a checkpoint every
+    ``save_every``, then a second call resumes to ``resume_to``. Checks:
+    every loss finite; the last step's gradient of the first linear
+    attention's ``to_qkv`` weight and of ``init_conv`` finite and not zero;
+    each train forward launched what the net routes to (6 / 3) and the
+    backward none; the step counter, the optimizer state and best_score
+    come back on resume; the checkpoint loads through ``factory.get_model``
+    and one EMA forward is finite; a ``use_pallas`` net's backward raises
+    the named error; both Functions' gradients equal the plain version's
+    at their flagship shapes (b = ``grad_b``, bf16 and f32); and
+    ``remat_steps`` steps with ``remat_unet`` on the same batch give the
+    same first loss with a lower peak of device memory. Reports ms per
+    train step (mean of steps 3 to ``steps``), the loop's phase breakdown,
+    the ms of each Function's backward recompute per step (profiler ranges
+    of the resumed run), peak device memory and the data path."""
+    import copy
+    import gc
+    import shutil
+    import tempfile
+
+    from srgd_tpu_torch.checkpoint import restore_params
+    from srgd_tpu_torch.config import load_config
+    from srgd_tpu_torch.factory import build_wrapper, get_model
+    from srgd_tpu_torch.kernels._autograd import recompute_range
+    from srgd_tpu_torch.nn.unet import build_unet_from_config
+    from srgd_tpu_torch.train import data as data_mod
+    from srgd_tpu_torch.train import loop, native, trainer
+    on_card = device.type == 'cuda'
+    here = os.path.dirname(os.path.abspath(__file__))
+    conf_path = os.path.join(here, conf)
+    cfg = load_config(conf_path)
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_train_')
+    t_phase = time.perf_counter()
+    try:
+        data_dir, out_dir = (os.path.join(tmp, d) for d in ('data', 'run'))
+        os.makedirs(data_dir)
+        _synth_pngs(data_dir, images, image_size, seed)
+        argv = ['-c', conf_path, '--data_dir', data_dir, '--out_dir',
+                out_dir, '--save_every', str(save_every), '--log_every', '1',
+                '--device', device.type]
+        per_forward = _per_forward(list(build_unet_from_config(
+            cfg, device='meta').modules()))
+        checks = {}
+
+        # the main path: `steps` steps from scratch
+        _reset_peak(torch, device)
+        reset_counts()
+        state = loop.main(argv + ['--steps', str(steps)])
+        if on_card:
+            torch.cuda.synchronize(device)
+        launches = read_counts()
+        peak_main = _peak_bytes(torch, device)
+        losses = list(state.losses)
+        step_ms = [t * 1e3 for t in state.timer.durations['step']]
+        breakdown = {k: {'seconds': v, 'calls': state.timer.counts[k]}
+                     for k, v in state.timer.totals.items()}
+        grads = {k: state.params[k].grad for k in
+                 ('downs.0.2.to_qkv.weight', 'init_conv.weight')}
+        checks['steps'] = state.step == steps
+        for k, g in grads.items():
+            checks[f'grad_{k}'] = g is not None and bool(
+                torch.isfinite(g).all()) and float(g.abs().max()) > 0
+        grad_max = {k: None if g is None else float(g.abs().max())
+                    for k, g in grads.items()}
+        # one forward a step; the backward launches nothing
+        for name in KERNELS:
+            checks[f'{name}_launches'] = (launches[name]
+                                          == per_forward[name] * steps * on_card)
+        del state, grads
+
+        ckpt = os.path.join(out_dir, cfg.prefix)
+        saved = restore_params(ckpt)
+        best_saved = saved['best_score']
+        checks['saved_step'] = saved['step'] == steps
+        del saved
+
+        # the resume, profiled for the backward recompute's ranges
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                         if on_card else [])
+        reset_counts()
+        with _Records('srgd_tpu_torch.train') as rec, \
+                profile(activities=acts) as prof:
+            state = loop.main(argv + ['--steps', str(resume_to)])
+            if on_card:
+                torch.cuda.synchronize(device)
+        resume_launches = read_counts()
+        losses += list(state.losses)
+        checks['resumed'] = any(
+            m.startswith('resumed from') and m.endswith(
+                f'at step {steps}, best_score {best_saved!r}')
+            for m in rec.messages)
+        checks['resume_steps'] = state.step == resume_to
+        # AdamW's step count in each parameter's state (``trainer.Adam``)
+        counts = {s['count'] for s in state.optimizer.state.values()}
+        checks['optimizer_state_restored'] = counts == {resume_to}
+        for name in KERNELS:
+            checks[f'{name}_resume_launches'] = (
+                resume_launches[name]
+                == per_forward[name] * (resume_to - steps) * on_card)
+        launches = {k: launches[k] + resume_launches[k] for k in launches}
+        # the range appears twice on the card: on the host, whose device
+        # time is that of the kernels launched inside it, and as the
+        # device-side annotation, whose time is its span on the card
+        from torch.autograd import DeviceType
+        recompute = {}
+        for name in ('linattn_block', 'attn_block'):
+            rows = [e for e in prof.key_averages()
+                    if e.key == recompute_range(name)]
+            host = [e for e in rows if e.device_type == DeviceType.CPU]
+            span = [e for e in rows if e.device_type != DeviceType.CPU]
+            per_step = 1e3 * (resume_to - steps)
+
+            def device_us(e):
+                return getattr(e, 'device_time_total',
+                               getattr(e, 'cuda_time_total', 0))
+            recompute[name] = {
+                'kernel_ms_per_step': sum(map(device_us, host)) / per_step,
+                'span_ms_per_step': sum(map(device_us, span)) / per_step,
+                'host_ms_per_step': sum(e.cpu_time_total for e in host)
+                / per_step,
+                'calls_per_step': sum(e.count for e in host)
+                / (resume_to - steps)}
+        checks['recompute_ranges'] = all(
+            r['calls_per_step'] == per_forward[k]
+            for k, r in recompute.items())
+        del state, prof
+        checks['losses_finite'] = all(math.isfinite(x) for x in losses)
+
+        # the trained checkpoint samples: its EMA through the factory
+        wrapper, net = get_model(load_config(conf_path), ckpt, device=device)
+        ema = restore_params(ckpt)['ema_params']
+        checks['ema_loaded'] = all(torch.equal(v.cpu(), ema[k])
+                                   for k, v in net.state_dict().items())
+        gen = torch.Generator(device=device).manual_seed(seed)
+        s = cfg.hr_image_size
+        with torch.inference_mode():
+            out = net(torch.randn((1, 3, s, s), generator=gen, device=device),
+                      torch.rand(1, generator=gen, device=device),
+                      cond=torch.rand((1, 3, s, s), generator=gen,
+                                      device=device),
+                      class_label=torch.tensor([1], device=device))
+        checks['ema_forward_finite'] = bool(torch.isfinite(out).all())
+        del wrapper, net, ema, out
+
+        # a use_pallas net cannot be trained, in either package
+        c = copy.deepcopy(cfg)
+        c.use_pallas_kernels = True
+        pallas = build_unet_from_config(c, device=device)
+        pallas.init_weights(torch.Generator().manual_seed(seed))
+        x = torch.randn((1, 3, pallas_size, pallas_size), generator=gen,
+                        device=device)
+        try:
+            pallas(x, torch.rand(1, generator=gen, device=device)).sum() \
+                .backward()
+            checks['use_pallas_backward_raises'] = False
+        except RuntimeError as e:
+            checks['use_pallas_backward_raises'] = 'has no gradient' in str(e)
+        del pallas, x
+
+        # remat: the same first loss on one batch, less memory
+        batch = next(iter(data_mod.DegradationDataset(
+            data_dir, crop_size=cfg.hr_image_size, batch_size=cfg.batch_size,
+            num_classes=cfg.num_classes, seed=cfg.seed, num_workers=1,
+            degrade_cfg=data_mod.DegradeConfig.from_conf(cfg),
+            scale=cfg.hr_image_size // cfg.lr_image_size, as_uint8=True)))
+        batch = [torch.from_numpy(a).to(device) for a in batch]
+        remat = {}
+        for on in (False, True):
+            c = copy.deepcopy(cfg)
+            c.remat_unet = on
+            net = build_unet_from_config(c, device=device).train()
+            loop._init_weights(net, None, c)
+            wrapper = build_wrapper(c, net)
+            params = trainer.trainable_params(wrapper)
+            st = trainer.create_train_state(params, trainer.make_optimizer(
+                c, params, steps_per_epoch=1))
+            step = trainer.make_train_step(wrapper, c.ema_decay,
+                                           'conditional' in c.model, c.seed)
+            gc.collect()
+            _reset_peak(torch, device)
+            rl = [float(step(st, *batch)) for _ in range(remat_steps)]
+            remat['remat' if on else 'plain'] = {
+                'losses': rl, 'peak_gb': _peak_bytes(torch, device) / 1e9}
+            del net, wrapper, params, st, step
+        checks['remat_first_loss_equal'] = (remat['plain']['losses'][0]
+                                            == remat['remat']['losses'][0])
+        checks['remat_lowers_peak_memory'] = (
+            not on_card or remat['remat']['peak_gb'] < remat['plain']['peak_gb'])
+
+        # the Functions' gradients against the plain version's
+        grad_cases = []
+        for dtype in (torch.bfloat16, torch.float32):
+            for kind, shapes in (('linattn_block', grad_lin_shapes),
+                                 ('attn_block', grad_attn_shapes)):
+                for n, c in shapes:
+                    grad_cases.append(_grad_case(torch, device, kind, grad_b,
+                                                 n, c, dtype, gen))
+        checks['function_gradients'] = all(g['ok'] for g in grad_cases)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    timed = step_ms[2:steps] or step_ms
+    return {'phase': 'train', 'ok': all(checks.values()), 'checks': checks,
+            'config': conf, 'steps': steps, 'resume_to': resume_to,
+            'launches': launches, 'per_forward': per_forward,
+            'losses': losses, 'step_ms': step_ms,
+            'ms_per_step': sum(timed) / len(timed),
+            'phase_breakdown': breakdown,
+            'recompute_per_step': recompute,
+            'peak_memory_gb': peak_main / 1e9, 'remat': remat,
+            'grad_max': grad_max, 'grad_cases': grad_cases,
+            'data_path': native.backend(),
+            'seconds': time.perf_counter() - t_phase}
+
+
 def _bench_net(torch, device, wrapper, cond, *, tile_size, batch_size, seed,
                forward_iters):
     """ms of one forward on a tile batch, and of one even and one odd sampler
@@ -1455,9 +1808,9 @@ def phase_profile(torch, device, *, tile_size=256, batch_size=8, seed=0,
 
 
 def summary(kernels, *paths):
-    """One entry per kernel: ``launches``, its launches on the sampling
-    paths (``slice``, ``slice_pallas``, ``deep_cache``, ``families``,
-    ``serve``; each run counted from 0 around that run alone), the largest
+    """One entry per kernel: ``launches``, its launches on the main paths
+    (``slice``, ``slice_pallas``, ``deep_cache``, ``families``, ``serve``,
+    ``train``; each run counted from 0 around that run alone), the largest
     error over its
     cases, and the times and bound of its first bfloat16 case.
     ``drive_launches`` counts launches outside any path: no module calls
@@ -1502,7 +1855,7 @@ def main() -> int:
     emit(dev)
     emit(phase_build())
     todo = [phase_kernels, phase_slice, phase_slice_pallas, phase_deep_cache,
-            phase_families, phase_serve, phase_bench]
+            phase_families, phase_serve, phase_train, phase_bench]
     if '--profile' in sys.argv[1:]:
         todo.append(phase_profile)
     phases = []
@@ -1510,7 +1863,7 @@ def main() -> int:
         phases.append(phase(torch, device))
         emit(phases[-1])
         torch.cuda.synchronize()
-    table = summary(phases[0], *phases[1:6])
+    table = summary(phases[0], *phases[1:7])
     emit(table)
     failed = [p['phase'] for p in phases if not p['ok']]
     # a kernel no module calls is held to its direct drive instead

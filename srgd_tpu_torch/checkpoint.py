@@ -1,4 +1,5 @@
-"""Reference checkpoints and JAX params as the port's state dict.
+"""Reference checkpoints and JAX params as the port's state dict, and the
+trainer's crash-safe checkpoints.
 
 The port's parameter names are the reference's torch keys, so a reference
 ``.pth`` needs no key conversion: ``load_reference_checkpoint`` reads its
@@ -11,14 +12,33 @@ whole tree with a learned schedule) into the same layout. ``_BUFFER_KEYS``, ``st
 ``flax_to_torch_unet_state_dict`` are the port's own copies of the functions
 of those names in ``srgd_tpu/checkpoint/torch_convert.py``;
 tests/test_torch_hygiene.py holds them to the originals.
+
+The trainer's state (``save_params``, ``copy_checkpoint``,
+``checkpoint_exists``, ``restore_params``: the names and the swap
+discipline of ``srgd_tpu/checkpoint/io.py``) is a directory holding one
+file in ``torch.save``'s format, ``STATE_FILE``: {params, ema_params,
+opt_state, step, best_score}, the parameter dicts keyed by the port's
+state-dict names. A save never leaves the previous checkpoint destroyable:
+the new state is written to a sibling ``<path>.new`` and swapped in with
+directory renames, so at every instant a complete checkpoint exists under
+``<path>``, ``<path>.new`` or ``<path>.old``, and ``restore_params`` falls
+back in that order. ``load_trained_checkpoint`` reads such a directory's
+EMA parameters for sampling.
 """
 
 from __future__ import annotations
 
+import logging
+import os
 import re
+import shutil
 
 import numpy as np
 import torch
+
+logger = logging.getLogger('srgd_tpu_torch')
+
+STATE_FILE = 'state.pt'
 
 _WRAPPER_PREFIXES = ('model.', 'net.')
 
@@ -182,3 +202,96 @@ def load_reference_checkpoint(path) -> dict:
     if unknown:
         raise KeyError(f'unexpected non-U-Net keys: {unknown[:10]}')
     return {**unet_sd, **schedule}
+
+
+# ---------------------------------------------------------------------------
+# The trainer's checkpoints
+# ---------------------------------------------------------------------------
+
+class _TorchCheckpointer:
+    """Writes and reads one checkpoint directory. A fresh save writes the
+    file under a temporary name and renames it, so a crash never leaves a
+    half file named ``STATE_FILE``."""
+
+    def save(self, path: str, item) -> None:
+        os.makedirs(path, exist_ok=True)
+        final = os.path.join(path, STATE_FILE)
+        tmp = f'{final}.{os.getpid()}.tmp'
+        torch.save(item, tmp)
+        os.replace(tmp, final)
+
+    def restore(self, path: str):
+        return torch.load(os.path.join(path, STATE_FILE), map_location='cpu',
+                          weights_only=True)
+
+
+def _checkpointer() -> _TorchCheckpointer:
+    return _TorchCheckpointer()
+
+
+def save_params(path: str, params) -> None:
+    """Save ``params`` (a dict of tensors and numbers) as the checkpoint
+    directory ``path``; the previous checkpoint stays intact until the new
+    one is complete."""
+    path = os.path.abspath(path)
+    if not os.path.exists(path):
+        tmp = path + '.new'
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        _checkpointer().save(tmp, params)
+        os.rename(tmp, path)
+        return
+    tmp, old = path + '.new', path + '.old'
+    for leftover in (tmp, old):        # debris from an earlier crash
+        if os.path.exists(leftover):
+            shutil.rmtree(leftover)
+    _checkpointer().save(tmp, params)  # previous checkpoint still intact
+    os.rename(path, old)
+    os.rename(tmp, path)
+    shutil.rmtree(old)
+
+
+def copy_checkpoint(src: str, dst: str) -> None:
+    """Crash-safe file copy of a finished checkpoint directory, with the
+    same swap discipline as ``save_params``."""
+    src, dst = os.path.abspath(src), os.path.abspath(dst)
+    if not os.path.isdir(src):
+        raise FileNotFoundError(f'checkpoint {src} does not exist')
+    tmp, old = dst + '.new', dst + '.old'
+    for leftover in (tmp, old):
+        if os.path.exists(leftover):
+            shutil.rmtree(leftover)
+    shutil.copytree(src, tmp)
+    if not os.path.exists(dst):
+        os.rename(tmp, dst)
+        return
+    os.rename(dst, old)
+    os.rename(tmp, dst)
+    shutil.rmtree(old)
+
+
+def checkpoint_exists(path: str) -> bool:
+    """True if ``restore_params(path)`` has something to restore (including
+    the crash-recovery fallbacks)."""
+    path = os.path.abspath(path)
+    return any(os.path.isdir(path + s) for s in ('', '.new', '.old'))
+
+
+def restore_params(path: str):
+    """The dict ``save_params`` wrote under ``path``, or under ``<path>.new``
+    or ``<path>.old`` when a crash mid-swap left only those."""
+    path = os.path.abspath(path)
+    if not os.path.isdir(path):
+        for suffix in ('.new', '.old'):
+            if os.path.isdir(path + suffix):
+                logger.warning('checkpoint %s missing; restoring from %s',
+                               path, path + suffix)
+                path = path + suffix
+                break
+    return _checkpointer().restore(path)
+
+
+def load_trained_checkpoint(path) -> dict:
+    """The EMA parameters of a trainer checkpoint directory, as the port's
+    state dict (a learned schedule's entries under ``log_snr.``)."""
+    return dict(restore_params(path)['ema_params'])

@@ -1,6 +1,7 @@
 """Shared diffusion machinery: normalisation, fused classifier-free guidance,
-the DeepCache refresh schedule and the tiled sampler's per-parity tile
-batches.
+the DeepCache refresh schedule, the tiled sampler's per-parity tile
+batches, and the pieces the three training losses share (draws, condition
+dropout, the elementwise loss).
 
 Counterpart of ``srgd_tpu/diffusion/base.py``. Guidance runs the conditional
 and the null branch as ONE doubled batch in ``[cond, null]`` order and merges
@@ -172,6 +173,64 @@ class GeneratorNoise:
 
     def margin(self, i: int, shape):
         return self._draw(shape)
+
+
+class GeneratorDraws:
+    """The default draw source of the training losses: one
+    ``torch.Generator`` on ``device``, seeded with ``seed``, drawn in the
+    order the loss asks. Each draw has a name, which a test's replay source
+    maps to the JAX loss's key of that role: ``t`` (continuous times,
+    gaussian timesteps), ``sigma`` (elucidated), ``noise``, ``offset``
+    (gaussian offset noise), ``drop_cond`` and ``drop_class`` (the
+    whole-batch condition and class dropout uniforms)."""
+
+    def __init__(self, seed: int, device):
+        self.device = torch.device(device)
+        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+
+    def uniform(self, name: str, shape):
+        return torch.rand(tuple(shape), generator=self.gen,
+                          device=self.device, dtype=torch.float32)
+
+    def normal(self, name: str, shape):
+        return torch.randn(tuple(shape), generator=self.gen,
+                           device=self.device, dtype=torch.float32)
+
+    def randint(self, name: str, shape, high: int):
+        return torch.randint(0, high, tuple(shape), generator=self.gen,
+                             device=self.device)
+
+
+def drop_conditions(draws, cond, class_label, cond_drop_prob: float,
+                    class_cond_drop_prob: float):
+    """Whole-batch condition and class dropout, one uniform each, as the
+    reference draws them: (cond or zeros, class_mask or None). Decided on
+    the device, with no host sync."""
+    drop_cond = draws.uniform('drop_cond', ()) < cond_drop_prob
+    cond = torch.where(drop_cond, torch.zeros_like(cond), cond)
+    class_mask = None
+    if class_label is not None:
+        drop_class = draws.uniform('drop_class', ()) < class_cond_drop_prob
+        class_mask = torch.where(drop_class, 0.0, 1.0) * torch.ones(
+            cond.shape[0], device=cond.device)
+    return cond, class_mask
+
+
+def elementwise_loss(pred, target, loss_type: str):
+    """``_elementwise_loss`` of the JAX package: l2, l1 or smooth_l1."""
+    if loss_type == 'l2':
+        return torch.square(pred - target)
+    if loss_type == 'l1':
+        return torch.abs(pred - target)
+    if loss_type == 'smooth_l1':
+        d = torch.abs(pred - target)
+        return torch.where(d < 1.0, 0.5 * d * d, d - 0.5)
+    raise ValueError(f'invalid loss type {loss_type}')
+
+
+def per_sample_mean(err):
+    """(b, ...) -> (b,) means."""
+    return torch.mean(err.reshape(err.shape[0], -1), dim=1)
 
 
 class DeepCache:

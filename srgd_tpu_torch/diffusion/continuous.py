@@ -59,11 +59,14 @@ import numpy as np
 import torch
 
 from srgd_tpu_torch.diffusion.base import (
-    GeneratorNoise, guidance_scale, guided_denoise, make_deep_cache,
-    nhwc_net_apply, normalize_to_neg_one_to_one, pad_tiles_to_multiple,
+    GeneratorNoise, drop_conditions, elementwise_loss, guidance_scale,
+    guided_denoise, make_deep_cache, nhwc_net_apply,
+    normalize_to_neg_one_to_one, pad_tiles_to_multiple, per_sample_mean,
     prepare_tile_context, resolve_guidance_mode, unnormalize_to_zero_to_one,
 )
-from srgd_tpu_torch.diffusion.schedules import make_log_snr_table
+from srgd_tpu_torch.diffusion.schedules import (
+    LOG_SNR_SCHEDULES, make_log_snr_table,
+)
 from srgd_tpu_torch.tiling import (
     extract_tiles, make_geometry, reflect_pad, scatter_tiles,
 )
@@ -86,14 +89,18 @@ class ContinuousDiffusion:
     ``noise_schedule`` 'learned' reads the ``LearnedLogSNR`` module passed as
     ``log_snr``. ``deep_cache_interval`` > 1 turns DeepCache on, split at
     U-Net stage ``deep_cache_depth``, refreshing on ``deep_cache_schedule``
-    (``base.refresh_mask``)."""
+    (``base.refresh_mask``). The training keywords (condition dropout, loss
+    type, min-SNR weighting, ``frac_gradient``) are read by ``loss``."""
 
     def __init__(self, net, *, image_size: int, channels: int = 3,
                  noise_schedule: str = 'linear', num_sample_steps: int = 500,
                  clip_sample_denoised: bool = True, sampler: str = 'ancestral',
                  ddim_eta: float = 0.0, deep_cache_interval: int = 0,
                  deep_cache_depth: int = 2, deep_cache_schedule: str = '',
-                 log_snr=None):
+                 log_snr=None, min_snr_loss_weight: bool = False,
+                 min_snr_gamma: float = 5.0, cond_drop_prob: float = 0.0,
+                 class_cond_drop_prob: float = 0.0, loss_type: str = 'l2',
+                 learned_noise_schedule_frac_gradient: float = 1.0):
         if sampler not in SAMPLERS:
             raise ValueError(f'unknown continuous sampler {sampler!r}; '
                              f'supported: {", ".join(map(repr, SAMPLERS))}')
@@ -118,6 +125,12 @@ class ContinuousDiffusion:
         self.deep_cache_depth = deep_cache_depth
         self.deep_cache_schedule = deep_cache_schedule
         self.log_snr = log_snr
+        self.min_snr_loss_weight = min_snr_loss_weight
+        self.min_snr_gamma = min_snr_gamma
+        self.cond_drop_prob = cond_drop_prob
+        self.class_cond_drop_prob = class_cond_drop_prob
+        self.loss_type = loss_type
+        self.frac_gradient = learned_noise_schedule_frac_gradient
         self.net_apply = nhwc_net_apply(net, deep_cache_depth)
 
     @property
@@ -336,3 +349,46 @@ class ContinuousDiffusion:
         left, top, right, bottom = geom.crop
         out = img[:, top:bottom, left:right, :]
         return unnormalize_to_zero_to_one(torch.clamp(out, -1.0, 1.0))
+
+    # ------------------------------------------------------------------
+    # Training loss: ``ContinuousDiffusion.loss`` of the JAX package.
+    # ------------------------------------------------------------------
+    def log_snr_of(self, times):
+        """log-SNR of float32 times (b,) on the device, differentiable in a
+        learned schedule's parameters, with its ``frac_gradient`` mix."""
+        if self.log_snr is None:
+            return LOG_SNR_SCHEDULES[self.noise_schedule](times)
+        normed = self.log_snr(times)
+        if self.frac_gradient == 1.0:
+            return normed
+        return (normed * self.frac_gradient
+                + normed.detach() * (1 - self.frac_gradient))
+
+    def loss(self, img, condition_x, class_label=None, *, draws, noise=None,
+             times=None):
+        """Scalar training loss. img / condition_x: (B, H, W, C) in [0, 1].
+        ``draws``: the draw source (``base.GeneratorDraws``): times ``t``
+        (B,) uniform, ``noise`` (B, H, W, C) normal, and the whole-batch
+        dropout uniforms. The net predicts the noise; with
+        ``min_snr_loss_weight`` each sample's loss is weighted by
+        max(snr, gamma) / snr (the continuous family clamps from below)."""
+        b = img.shape[0]
+        if times is None:
+            times = draws.uniform('t', (b,))
+        if noise is None:
+            noise = draws.normal('noise', img.shape)
+        x_start = normalize_to_neg_one_to_one(img)
+        cond, class_mask = drop_conditions(
+            draws, normalize_to_neg_one_to_one(condition_x), class_label,
+            self.cond_drop_prob, self.class_cond_drop_prob)
+        log_snr = self.log_snr_of(times)
+        padded = log_snr.reshape((b,) + (1,) * (img.dim() - 1))
+        x = (x_start * torch.sqrt(torch.sigmoid(padded))
+             + noise * torch.sqrt(torch.sigmoid(-padded)))
+        eps_hat = self.net_apply(x, log_snr, cond, class_label, class_mask)
+        losses = per_sample_mean(elementwise_loss(eps_hat, noise,
+                                                  self.loss_type))
+        if self.min_snr_loss_weight:
+            snr = torch.exp(log_snr)
+            losses = losses * (torch.clamp_min(snr, self.min_snr_gamma) / snr)
+        return torch.mean(losses)

@@ -1,7 +1,7 @@
 """EDM (Karras "elucidated") diffusion: the stochastic Heun sampler, DPM-Solver++(2M)
 and the alternating-grid tiled Heun sampler, with DeepCache.
 
-Counterpart of ``srgd_tpu/diffusion/elucidated.py`` without training. Every
+Counterpart of ``srgd_tpu/diffusion/elucidated.py``. Every
 scalar (sigmas, churn factors, the preconditioners, DPM++'s h and r) is a
 float32 numpy value, as in the JAX sampler.
 
@@ -36,8 +36,9 @@ import numpy as np
 import torch
 
 from srgd_tpu_torch.diffusion.base import (
-    GeneratorNoise, guidance_scale, guided_denoise, make_deep_cache,
-    nhwc_net_apply, normalize_to_neg_one_to_one, pad_tiles_to_multiple,
+    GeneratorNoise, drop_conditions, elementwise_loss, guidance_scale,
+    guided_denoise, make_deep_cache, nhwc_net_apply,
+    normalize_to_neg_one_to_one, pad_tiles_to_multiple, per_sample_mean,
     prepare_tile_context, resolve_guidance_mode, unnormalize_to_zero_to_one,
 )
 from srgd_tpu_torch.diffusion.schedules import EDMParams
@@ -51,12 +52,15 @@ _f32 = np.float32
 class ElucidatedDiffusion:
     """EDM wrapper of a denoiser net whose time input is c_noise(sigma).
     ``use_dpmpp_solver`` picks DPM++(2M) over Heun for untiled ``sample``.
-    DeepCache as in ``continuous.py``."""
+    DeepCache as in ``continuous.py``. The training keywords (condition
+    dropout, loss type) are read by ``loss``."""
 
     def __init__(self, net, *, image_size: int, channels: int = 3,
                  num_sample_steps: int = 32, edm: EDMParams | None = None,
                  use_dpmpp_solver: bool = False, deep_cache_interval: int = 0,
-                 deep_cache_depth: int = 2, deep_cache_schedule: str = ''):
+                 deep_cache_depth: int = 2, deep_cache_schedule: str = '',
+                 cond_drop_prob: float = 0.0,
+                 class_cond_drop_prob: float = 0.0, loss_type: str = 'l2'):
         self.net = net
         self.image_size = image_size
         self.channels = channels
@@ -66,6 +70,9 @@ class ElucidatedDiffusion:
         self.deep_cache_interval = deep_cache_interval
         self.deep_cache_depth = deep_cache_depth
         self.deep_cache_schedule = deep_cache_schedule
+        self.cond_drop_prob = cond_drop_prob
+        self.class_cond_drop_prob = class_cond_drop_prob
+        self.loss_type = loss_type
         self.net_apply = nhwc_net_apply(net, deep_cache_depth)
 
     def precond_denoise(self, x, sigma, cond, class_label, mode: str,
@@ -265,3 +272,31 @@ class ElucidatedDiffusion:
         left, top, right, bottom = geom.crop
         out = img[:, top:bottom, left:right, :]
         return unnormalize_to_zero_to_one(torch.clamp(out, -1.0, 1.0))
+
+    # ------------------------------------------------------------------
+    # Training loss: ``ElucidatedDiffusion.loss`` of the JAX package.
+    # ------------------------------------------------------------------
+    def loss(self, img, condition_x, class_label=None, *, draws, noise=None,
+             sigmas=None):
+        """Scalar training loss. img / condition_x: (B, H, W, C) in [0, 1].
+        ``draws``: the whole-batch dropout uniforms, ``sigma`` (B,) normal
+        (sigmas = exp(P_mean + P_std n)) and ``noise``. Per-sample
+        preconditioning; each sample's loss weighted by the EDM loss
+        weight."""
+        b = img.shape[0]
+        e = self.edm
+        x = normalize_to_neg_one_to_one(img)
+        cond, class_mask = drop_conditions(
+            draws, normalize_to_neg_one_to_one(condition_x), class_label,
+            self.cond_drop_prob, self.class_cond_drop_prob)
+        if sigmas is None:
+            sigmas = torch.exp(e.P_mean + e.P_std * draws.normal('sigma', (b,)))
+        if noise is None:
+            noise = draws.normal('noise', x.shape)
+        sig_b = sigmas.reshape((b,) + (1,) * (x.dim() - 1))
+        noised = x + sig_b * noise
+        net_out = self.net_apply(e.c_in_t(sig_b) * noised, e.c_noise_t(sigmas),
+                                 cond, class_label, class_mask)
+        denoised = e.c_skip_t(sig_b) * noised + e.c_out_t(sig_b) * net_out
+        losses = per_sample_mean(elementwise_loss(denoised, x, self.loss_type))
+        return torch.mean(losses * e.loss_weight_t(sigmas))

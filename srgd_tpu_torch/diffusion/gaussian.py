@@ -2,7 +2,7 @@
 DDIM samplers, untiled and alternating-grid tiled (DDIM), with the three
 objectives and DeepCache.
 
-Counterpart of ``srgd_tpu/diffusion/gaussian.py`` without training. The
+Counterpart of ``srgd_tpu/diffusion/gaussian.py``. The
 tables come from float64 beta schedules cast to float32
 (``schedules.make_discrete_schedule``); every scalar is a float32 numpy
 value, as in the JAX step.
@@ -34,8 +34,9 @@ import torch
 
 from srgd_tpu_torch.diffusion import schedules
 from srgd_tpu_torch.diffusion.base import (
-    GeneratorNoise, guidance_scale, guided_denoise, make_deep_cache,
-    nhwc_net_apply, normalize_to_neg_one_to_one, pad_tiles_to_multiple,
+    GeneratorNoise, drop_conditions, elementwise_loss, guidance_scale,
+    guided_denoise, make_deep_cache, nhwc_net_apply,
+    normalize_to_neg_one_to_one, pad_tiles_to_multiple, per_sample_mean,
     prepare_tile_context, resolve_guidance_mode, unnormalize_to_zero_to_one,
 )
 from srgd_tpu_torch.tiling import (
@@ -57,13 +58,19 @@ def ddim_time_pairs(total_timesteps: int, sampling_timesteps: int) -> np.ndarray
 class GaussianDiffusion:
     """DDPM/DDIM wrapper of a denoiser net whose time input is the integer
     timestep. ``sampling_timesteps`` < ``timesteps`` samples with DDIM, else
-    ancestrally over all T steps. DeepCache as in ``continuous.py``."""
+    ancestrally over all T steps. DeepCache as in ``continuous.py``. The
+    training keywords (offset noise, min-SNR weighting, condition dropout,
+    loss type) are read by ``loss``."""
 
     def __init__(self, net, *, image_size: int, channels: int = 3,
                  timesteps: int = 1000, sampling_timesteps: int | None = None,
                  objective: str = 'pred_noise', beta_schedule: str = 'linear',
                  deep_cache_interval: int = 0,
-                 deep_cache_depth: int = 2, deep_cache_schedule: str = ''):
+                 deep_cache_depth: int = 2, deep_cache_schedule: str = '',
+                 offset_noise_strength: float = 0.0,
+                 min_snr_loss_weight: bool = False, min_snr_gamma: float = 5.0,
+                 cond_drop_prob: float = 0.0,
+                 class_cond_drop_prob: float = 0.0, loss_type: str = 'l2'):
         if objective not in OBJECTIVES:
             raise ValueError('objective must be either pred_noise (predict '
                              'noise) or pred_x0 (predict image start) or '
@@ -82,6 +89,13 @@ class GaussianDiffusion:
         self.objective = objective
         self.beta_schedule = beta_schedule
         self.sched = schedules.make_discrete_schedule(beta_schedule, timesteps)
+        self.loss_weight = schedules.discrete_loss_weight(
+            beta_schedule, timesteps, objective, min_snr_loss_weight,
+            min_snr_gamma)
+        self.offset_noise_strength = offset_noise_strength
+        self.cond_drop_prob = cond_drop_prob
+        self.class_cond_drop_prob = class_cond_drop_prob
+        self.loss_type = loss_type
         self.deep_cache_interval = deep_cache_interval
         self.deep_cache_depth = deep_cache_depth
         self.deep_cache_schedule = deep_cache_schedule
@@ -297,3 +311,45 @@ class GaussianDiffusion:
         left, top, right, bottom = geom.crop
         out = img[:, top:bottom, left:right, :]
         return unnormalize_to_zero_to_one(torch.clamp(out, -1.0, 1.0))
+
+    # ------------------------------------------------------------------
+    # Training loss: ``GaussianDiffusion.loss`` of the JAX package.
+    # ------------------------------------------------------------------
+    def loss(self, img, condition_x, class_label=None, *, draws, noise=None,
+             t=None):
+        """Scalar training loss. img / condition_x: (B, H, W, C) in [0, 1].
+        ``draws``: timesteps ``t`` (B,) uniform over [0, T), ``noise``,
+        ``offset`` (B, 1, 1, C) when ``offset_noise_strength`` > 0, and the
+        whole-batch dropout uniforms. The target is the objective's (noise,
+        x0 or v), each sample weighted by the schedule's loss weight."""
+        b = img.shape[0]
+        dev = img.device
+        if t is None:
+            t = draws.randint('t', (b,), self.timesteps)
+        x_start = normalize_to_neg_one_to_one(img)
+        if noise is None:
+            noise = draws.normal('noise', img.shape)
+        if self.offset_noise_strength > 0.0:
+            offset = draws.normal('offset', (b, 1, 1, img.shape[-1]))
+            noise = noise + self.offset_noise_strength * offset
+        cond, class_mask = drop_conditions(
+            draws, normalize_to_neg_one_to_one(condition_x), class_label,
+            self.cond_drop_prob, self.class_cond_drop_prob)
+
+        def table(values):
+            return torch.from_numpy(values).to(dev)[t].reshape(
+                (b,) + (1,) * (img.dim() - 1))
+
+        sa = table(self.sched.sqrt_alphas_cumprod)
+        s1a = table(self.sched.sqrt_one_minus_alphas_cumprod)
+        x = sa * x_start + s1a * noise
+        out = self.net_apply(x, t.float(), cond, class_label, class_mask)
+        if self.objective == 'pred_noise':
+            target = noise
+        elif self.objective == 'pred_x0':
+            target = x_start
+        else:
+            target = sa * noise - s1a * x_start
+        losses = per_sample_mean(elementwise_loss(out, target, self.loss_type))
+        losses = losses * torch.from_numpy(self.loss_weight).to(dev)[t]
+        return torch.mean(losses)

@@ -4,14 +4,17 @@ Counterpart of ``srgd_tpu/diffusion/schedules.py``, copied because that
 module imports ``jax.numpy``:
 
 - the discrete beta schedules and their DDPM/DDIM tables
-  (``make_discrete_schedule``), built in float64 numpy and cast to float32;
+  (``make_discrete_schedule``) and the training loss weights
+  (``discrete_loss_weight``), built in float64 numpy and cast to float32;
 - the continuous-time log-SNR tables (``make_log_snr_table``): the sampling
   times are a static linspace, so the values are computed once on the host in
-  float64 and cast to float32;
+  float64 and cast to float32; the training loss draws its times, so it
+  takes the float32 tensor functions of ``LOG_SNR_SCHEDULES``;
 - the learned monotonic log-SNR net (``LearnedLogSNR``), an ``nn.Module``
   whose parameter names are the reference checkpoint's ``log_snr.*`` keys;
 - the EDM (Karras) sigma schedule and preconditioners (``EDMParams``), whose
-  scalars are float32 numpy values, as the JAX sampler's traced scalars are.
+  scalars are float32 numpy values, as the JAX sampler's traced scalars are;
+  the training loss takes them per sample on tensors (``*_t`` methods).
 """
 
 from __future__ import annotations
@@ -116,6 +119,32 @@ def make_discrete_schedule(beta_schedule: str,
         )
 
 
+def discrete_loss_weight(beta_schedule: str, timesteps: int, objective: str,
+                         min_snr_loss_weight: bool = False,
+                         min_snr_gamma: float = 5.0) -> np.ndarray:
+    """The per-timestep training loss weight of ``objective`` (the JAX
+    ``DiscreteSchedule.loss_weight``), float32 (T,): snr (clipped to
+    ``min_snr_gamma`` from above with ``min_snr_loss_weight``) over snr,
+    itself or snr + 1. Entry 0 may be nan for a schedule whose
+    alphas_cumprod reaches 1, as in the reference."""
+    if beta_schedule not in BETA_SCHEDULES:
+        raise ValueError(f'unknown beta schedule {beta_schedule}')
+    alphas_cumprod = np.cumprod(1.0 - BETA_SCHEDULES[beta_schedule](timesteps))
+    with np.errstate(divide='ignore', invalid='ignore', over='ignore'):
+        snr = alphas_cumprod / (1 - alphas_cumprod)
+        clipped = (np.minimum(snr, min_snr_gamma) if min_snr_loss_weight
+                   else snr)
+        if objective == 'pred_noise':
+            weight = clipped / snr
+        elif objective == 'pred_x0':
+            weight = clipped
+        elif objective == 'pred_v':
+            weight = clipped / (snr + 1)
+        else:
+            raise ValueError(f'unknown objective {objective}')
+    return np.asarray(weight, dtype=np.float32)
+
+
 # ---------------------------------------------------------------------------
 # Continuous-time log-SNR tables (VDM family)
 # ---------------------------------------------------------------------------
@@ -134,6 +163,22 @@ def make_log_snr_table(noise_schedule: str, times: np.ndarray) -> np.ndarray:
         raise ValueError(f'unknown noise schedule {noise_schedule}')
     return vals.astype(np.float32)
 
+
+def beta_linear_log_snr(t):
+    """-log(expm1(1e-4 + 10 t^2)) on a float32 tensor."""
+    return -torch.log(torch.clamp_min(torch.expm1(1e-4 + 10 * (t ** 2)),
+                                      1e-20))
+
+
+def alpha_cosine_log_snr(t, s: float = 0.008):
+    return -torch.log(torch.clamp_min(
+        torch.cos((t + s) / (1 + s) * math.pi * 0.5) ** -2 - 1, 1e-5))
+
+
+LOG_SNR_SCHEDULES = {
+    'linear': beta_linear_log_snr,
+    'cosine': alpha_cosine_log_snr,
+}
 
 # beta-linear log-SNR at t = 0 and t = 1: the learned schedule's endpoints
 LOG_SNR_MAX = float(-np.log(np.expm1(1e-4)))
@@ -173,7 +218,8 @@ class LearnedLogSNR(nn.Module):
 
     Parameters ``net.1.net.*``, ``net.2.fn.0.net.*`` and ``net.2.fn.2.net.*``
     are the reference's ``log_snr.net...`` entries without the prefix. The
-    training-only gradient mix (``frac_gradient``) is not carried."""
+    training loss's gradient mix (``frac_gradient``) is applied by
+    ``ContinuousDiffusion.log_snr_of``."""
 
     def __init__(self, hidden_dim: int = 1024, device=None):
         super().__init__()
@@ -224,6 +270,8 @@ class EDMParams:
     sigma_max: float = 80.0
     sigma_data: float = 0.5
     rho: float = 7.0
+    P_mean: float = -1.2
+    P_std: float = 1.2
     S_churn: float = 80.0
     S_tmin: float = 0.05
     S_tmax: float = 50.0
@@ -244,6 +292,25 @@ class EDMParams:
 
     def c_noise(self, sigma):
         return _f32(0.25) * np.log(sigma)
+
+    # the same on float32 tensors of per-sample sigmas, in the JAX training
+    # loss's expressions
+    def c_skip_t(self, sigma):
+        return self.sigma_data ** 2 / (sigma ** 2 + self.sigma_data ** 2)
+
+    def c_out_t(self, sigma):
+        return (sigma * self.sigma_data
+                / torch.sqrt(sigma ** 2 + self.sigma_data ** 2))
+
+    def c_in_t(self, sigma):
+        return 1.0 / torch.sqrt(sigma ** 2 + self.sigma_data ** 2)
+
+    def c_noise_t(self, sigma):
+        return 0.25 * torch.log(sigma)
+
+    def loss_weight_t(self, sigma):
+        return ((sigma ** 2 + self.sigma_data ** 2)
+                / (sigma * self.sigma_data) ** 2)
 
     def sample_schedule(self, num_sample_steps: int) -> np.ndarray:
         """Karras rho schedule: N sigmas from sigma_max down to sigma_min and

@@ -32,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from srgd_tpu_torch.kernels import _build
+from srgd_tpu_torch.kernels._autograd import forward_only
 
 launches = 0   # kernel launches through attention (never the plain version)
 
@@ -103,7 +104,12 @@ def attention(q, k, v):
     stride; on the card the result is laid out (b, n, heads, d) in memory.
     A CPU tensor takes the plain version, a CUDA tensor the CUDA kernel
     (which raises rather than fall back); anything else raises. Forward
-    only: training is not ported."""
+    only, as in the JAX package: a backward through it raises
+    (``_autograd.forward_only``)."""
+    return forward_only('attention', _route, q, k, v)
+
+
+def _route(q, k, v):
     if q.device.type == 'cpu':
         return attention_plain(q, k, v)
     if q.device.type == 'cuda':

@@ -37,6 +37,7 @@ import math
 import torch
 
 from srgd_tpu_torch.kernels import _build
+from srgd_tpu_torch.kernels._autograd import recompute_backward
 
 launches = 0   # kernel launches through attn_block (never the plain version)
 
@@ -65,7 +66,6 @@ def attn_block_plain(x, g1, wqkv, wout, bout, *, heads: int, dim_head: int):
     o = rnd(attn @ v).transpose(1, 2).reshape(b, n, hidden)
     out = o @ rnd(wout) + bout.float()
     return out.to(x.dtype)
-
 
 
 def pack_qkv(wqkv, hidden: int):
@@ -140,6 +140,32 @@ def _launch(x, g1, wqkv, wout, bout, heads, dim_head):
     return out
 
 
+class _AttnBlock(torch.autograd.Function):
+    """``fused_attn_block``'s ``custom_vjp``: the forward is the kernel (the
+    plain version on the CPU) and saves only the primal inputs; the backward
+    recomputes ``attn_block_plain`` from them and takes its VJP, as
+    ``_fused_attn_block_bwd`` takes that of ``_xla_attn_block``."""
+
+    @staticmethod
+    def forward(ctx, x, g1, wqkv, wout, bout, heads, dim_head):
+        ctx.save_for_backward(x, g1, wqkv, wout, bout)
+        ctx.heads, ctx.dim_head = heads, dim_head
+        if x.device.type == 'cpu':
+            return attn_block_plain(x, g1, wqkv, wout, bout, heads=heads,
+                                    dim_head=dim_head)
+        if x.device.type == 'cuda':
+            return _launch(x, g1, wqkv, wout, bout, heads, dim_head)
+        raise RuntimeError(f'attn_block: no kernel for device {x.device}')
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        grads = recompute_backward('attn_block', attn_block_plain,
+                                   ctx.saved_tensors,
+                                   ctx.needs_input_grad[:5], grad_out,
+                                   heads=ctx.heads, dim_head=ctx.dim_head)
+        return (*grads, None, None)
+
+
 def attn_block(x, g1, wqkv, wout, bout, *, heads: int = 4,
                dim_head: int = 32):
     """The whole Attention block; signature of ``fused_attn_block``.
@@ -148,10 +174,7 @@ def attn_block(x, g1, wqkv, wout, bout, *, heads: int = 4,
     (hidden, c); bout: (c,). Returns (b, n, c) = to_out(SDPA(qkv(RMSNorm(x))))
     in x's dtype; the residual add stays with the caller. A CPU tensor takes
     the plain version, a CUDA tensor the CUDA kernel (which raises rather than
-    fall back); anything else raises. Forward only."""
-    if x.device.type == 'cpu':
-        return attn_block_plain(x, g1, wqkv, wout, bout, heads=heads,
-                                dim_head=dim_head)
-    if x.device.type == 'cuda':
-        return _launch(x, g1, wqkv, wout, bout, heads, dim_head)
-    raise RuntimeError(f'attn_block: no kernel for device {x.device}')
+    fall back); anything else raises. Differentiable in every input: the
+    backward recomputes the plain version (``_AttnBlock``) and launches no
+    kernel."""
+    return _AttnBlock.apply(x, g1, wqkv, wout, bout, heads, dim_head)

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from srgd_tpu_torch.kernels import _build
+from srgd_tpu_torch.kernels._autograd import forward_only
 
 launches = 0   # kernel launches through groupnorm_silu (never the plain version)
 
@@ -196,8 +197,13 @@ def groupnorm_silu(x, gamma, beta, film=None, *, groups: int = 8,
     beta: (c,); film: None or (b, 2, c) with ``[:, 0]`` the FiLM scale and
     ``[:, 1]`` the FiLM shift. Returns x's shape and dtype. A CPU tensor takes
     the plain version, a CUDA tensor the CUDA kernel (which raises rather
-    than fall back or copy); anything else raises. Forward only: training is
-    not ported."""
+    than fall back or copy); anything else raises. Forward only, as in the
+    JAX package: a backward through it raises (``_autograd.forward_only``)."""
+    return forward_only('groupnorm_silu', lambda *t: _route(*t, groups, eps),
+                        x, gamma, beta, film)
+
+
+def _route(x, gamma, beta, film, groups, eps):
     if x.device.type == 'cpu':
         return groupnorm_silu_plain(x, gamma, beta, film, groups=groups,
                                     eps=eps)

@@ -40,6 +40,7 @@ import math
 import torch
 
 from srgd_tpu_torch.kernels import _build
+from srgd_tpu_torch.kernels._autograd import recompute_backward
 
 launches = 0   # kernel launches through linattn_block (never the plain version)
 
@@ -186,6 +187,32 @@ def _launch(x, g1, wq, wk, wv, wout, bout, g2, dim_head):
     return out
 
 
+class _LinattnBlock(torch.autograd.Function):
+    """``fused_linattn_block``'s ``custom_vjp``: the forward is the kernel
+    (the plain version on the CPU) and saves only the primal inputs; the
+    backward recomputes ``linattn_block_plain`` from them and takes its VJP,
+    as ``_fused_linattn_block_bwd`` takes that of ``_xla_linattn_block``."""
+
+    @staticmethod
+    def forward(ctx, x, g1, wq, wk, wv, wout, bout, g2, dim_head):
+        ctx.save_for_backward(x, g1, wq, wk, wv, wout, bout, g2)
+        ctx.dim_head = dim_head
+        if x.device.type == 'cpu':
+            return linattn_block_plain(x, g1, wq, wk, wv, wout, bout, g2,
+                                       dim_head=dim_head)
+        if x.device.type == 'cuda':
+            return _launch(x, g1, wq, wk, wv, wout, bout, g2, dim_head)
+        raise RuntimeError(f'linattn_block: no kernel for device {x.device}')
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        grads = recompute_backward('linattn_block', linattn_block_plain,
+                                   ctx.saved_tensors,
+                                   ctx.needs_input_grad[:8], grad_out,
+                                   dim_head=ctx.dim_head)
+        return (*grads, None)
+
+
 def linattn_block(x, g1, wq, wk, wv, wout, bout, g2, *, dim_head: int = 32):
     """The whole LinearAttention block; signature of ``fused_linattn_block``.
 
@@ -193,10 +220,6 @@ def linattn_block(x, g1, wq, wk, wv, wout, bout, g2, *, dim_head: int = 32):
     (hidden, c), bout: (c,). Returns (b, n, c) in x's dtype; the residual add
     stays with the caller. A CPU tensor takes the plain version, a CUDA tensor
     the CUDA kernel (which raises rather than fall back); anything else
-    raises. Forward only."""
-    if x.device.type == 'cpu':
-        return linattn_block_plain(x, g1, wq, wk, wv, wout, bout, g2,
-                                   dim_head=dim_head)
-    if x.device.type == 'cuda':
-        return _launch(x, g1, wq, wk, wv, wout, bout, g2, dim_head)
-    raise RuntimeError(f'linattn_block: no kernel for device {x.device}')
+    raises. Differentiable in every input: the backward recomputes the plain
+    version (``_LinattnBlock``) and launches no kernel."""
+    return _LinattnBlock.apply(x, g1, wq, wk, wv, wout, bout, g2, dim_head)

@@ -33,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from srgd_tpu_torch.kernels import _build
+from srgd_tpu_torch.kernels._autograd import forward_only
 from srgd_tpu_torch.kernels.linattn_block import _head_mask, _split
 
 launches = 0       # kernel launches through linear_attention (separate q, k, v)
@@ -108,7 +109,13 @@ def linear_attention(q, k, v, *, dim_head: int = 32):
 
     A CPU tensor takes the plain version, a CUDA tensor the CUDA kernel, which
     needs contiguous operands and raises rather than fall back or copy;
-    anything else raises. Forward only: training is not ported."""
+    anything else raises. Forward only, as in the JAX package: a backward
+    through it raises (``_autograd.forward_only``)."""
+    return forward_only('linear_attention',
+                        lambda *t: _separate(*t, dim_head), q, k, v)
+
+
+def _separate(q, k, v, dim_head):
     global launches
     if q.device.type == 'cpu':
         return linear_attention_plain(q, k, v, dim_head=dim_head)
@@ -132,6 +139,11 @@ def linear_attention_qkv(qkv, *, dim_head: int = 32):
     """Signature of ``fused_linear_attention_qkv``: qkv (b, n, 3C) packed
     [q|k|v], exactly the to_qkv projection's output, so no slice is ever
     materialised. Returns (b, n, C); see ``linear_attention``."""
+    return forward_only('linear_attention_qkv',
+                        lambda t: _packed(t, dim_head), qkv)
+
+
+def _packed(qkv, dim_head):
     global launches_qkv
     if qkv.device.type == 'cpu':
         return linear_attention_qkv_plain(qkv, dim_head=dim_head)

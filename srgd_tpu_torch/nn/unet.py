@@ -18,6 +18,7 @@ from typing import Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from srgd_tpu_torch.nn.layers import (
     Attention, ClassMLP, Conv2d, Downsample, LearnedSinusoidalPosEmb,
@@ -43,7 +44,12 @@ class SRUnet(nn.Module):
     attention blocks run ``attention`` wherever the whole-block kernel does
     not keep them, which ``fused_linattn=False`` makes everywhere. With all
     three at their defaults the attention blocks are ``linattn_block`` and
-    ``attn_block``."""
+    ``attn_block``.
+
+    ``remat``: while gradients are recorded, every ``ResnetBlock`` and
+    attention block runs under ``torch.utils.checkpoint`` and recomputes its
+    activations in the backward instead of keeping them, as the JAX net
+    wraps those modules in ``nn.remat``. Parameter names do not change."""
 
     def __init__(self, dim: int, dim_mults: Sequence[int] = (1, 2, 4, 8),
                  channels: int = 3, resnet_block_groups: int = 8,
@@ -56,8 +62,9 @@ class SRUnet(nn.Module):
                  num_classes: int | None = None, dtype=torch.float32,
                  device=None, use_pallas: bool = False,
                  use_pallas_attention: bool = False,
-                 fused_linattn: bool = True):
+                 fused_linattn: bool = True, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.dim, self.dim_mults, self.channels = dim, tuple(dim_mults), channels
         self.num_classes, self.dtype = num_classes, dtype
         self.downsample_factor = 2 ** (len(dim_mults) - 1)
@@ -190,10 +197,10 @@ class SRUnet(nn.Module):
         for i, (block1, block2, attn, down) in enumerate(self.downs):
             if skip_deep and i >= cache_depth:
                 break
-            x = block1(x, t)
+            x = self._run(block1, x, t)
             hs.append(x)
-            x = block2(x, t)
-            x = attn(x) + x
+            x = self._run(block2, x, t)
+            x = self._run(attn, x) + x
             hs.append(x)
             if skip_deep and i == cache_depth - 1:
                 break    # this downsample only feeds the skipped deep half
@@ -203,18 +210,18 @@ class SRUnet(nn.Module):
             x = deep_cache.to(self.dtype).contiguous(
                 memory_format=torch.channels_last)
         else:
-            x = self.mid_block1(x, t)
-            x = self.mid_attn(x) + x
-            x = self.mid_block2(x, t)
+            x = self._run(self.mid_block1, x, t)
+            x = self._run(self.mid_attn, x) + x
+            x = self._run(self.mid_block2, x, t)
 
         cache = None
         for i, (block1, block2, attn, up) in enumerate(self.ups):
             stage = n_stages - 1 - i
             if skip_deep and stage >= cache_depth:
                 continue
-            x = block1(torch.cat([x, hs.pop()], dim=1), t)
-            x = block2(torch.cat([x, hs.pop()], dim=1), t)
-            x = attn(x) + x
+            x = self._run(block1, torch.cat([x, hs.pop()], dim=1), t)
+            x = self._run(block2, torch.cat([x, hs.pop()], dim=1), t)
+            x = self._run(attn, x) + x
             x = up(x)
             if return_cache and stage == cache_depth:
                 # a cached forward enters here from a channels-last cache; a
@@ -223,22 +230,24 @@ class SRUnet(nn.Module):
                 # algorithm
                 x = cache = x.contiguous(memory_format=torch.channels_last)
 
-        x = self.final_res_block(torch.cat([x, r], dim=1), t)
+        x = self._run(self.final_res_block, torch.cat([x, r], dim=1), t)
         out = self.final_conv(x).float()
         return (out, cache) if return_cache else out
 
+    def _run(self, module, *args):
+        """``module(*args)``, under ``checkpoint`` with ``remat`` while
+        gradients are recorded."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(module, *args, use_reentrant=False)
+        return module(*args)
+
 
 def build_unet_from_config(conf, dtype=None, device=None) -> SRUnet:
-    """``Config`` -> ``SRUnet``, as the JAX factory builds it. Options the port
-    does not carry raise (ROADMAP Queue 1 items 14 and 12)."""
-    unsupported = {
-        'quantize': conf.quantize != 'none',
-        'remat_unet': conf.remat_unet,
-    }
-    bad = [k for k, on in unsupported.items() if on]
-    if bad:
+    """``Config`` -> ``SRUnet``, as the JAX factory builds it. ``quantize``
+    is not ported and raises (ROADMAP Queue 1 item 14)."""
+    if conf.quantize != 'none':
         raise NotImplementedError(
-            f'not ported to srgd_tpu_torch yet (ROADMAP.md): {", ".join(bad)}')
+            'not ported to srgd_tpu_torch yet (ROADMAP.md): quantize')
     dim_mults = tuple(int(e) for e in conf.ddpm_unet_dim_mults.split(','))
     full_attn = tuple(e.strip() == 'True' for e in conf.full_attn.split(','))
     if dtype is None:
@@ -252,4 +261,4 @@ def build_unet_from_config(conf, dtype=None, device=None) -> SRUnet:
         num_classes=conf.num_classes if 'conditional' in conf.model else None,
         dtype=dtype, device=device, use_pallas=conf.use_pallas_kernels,
         use_pallas_attention=conf.flash_attn,
-        fused_linattn=conf.fused_linattn)
+        fused_linattn=conf.fused_linattn, remat=conf.remat_unet)

@@ -411,3 +411,45 @@ def test_attn_block_bf16_with_fewer_heads(cuda_device, heads):
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= \
         chip_smoke.BF16_RTOL * want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_block_functions_give_the_plain_gradients_on_the_card(cuda_device,
+                                                              dtype):
+    """``linattn_block`` and ``attn_block`` on CUDA tensors: the forward is
+    the kernel, the backward the plain version's VJP, equal to
+    ``torch.autograd`` of the plain version (chip_smoke's train phase holds
+    them at the flagship shapes)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    for kind, n, c in (('linattn_block', 1000, 128), ('attn_block', 256, 512)):
+        case = chip_smoke._grad_case(torch, cuda_device, kind, 2, n, c, dtype,
+                                     gen)
+        assert case['ok'] and case['dtypes_kept'], case
+
+
+@pytest.mark.cuda
+def test_backward_through_the_blocks_launches_no_kernel(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn(2, 64, 128, generator=g, device=cuda_device,
+                    requires_grad=True)
+    ones = torch.ones(128, device=cuda_device, requires_grad=True)
+    w = (torch.randn(128, 128, generator=g, device=cuda_device) / 16) \
+        .requires_grad_()
+    out = lb.linattn_block(x, ones, w, w, w, w, ones, ones, dim_head=32) + \
+        ab.attn_block(x, ones, torch.cat([w, w, w], 1), w, ones)
+    before = (lb.launches, ab.launches)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert (lb.launches, ab.launches) == before
+    assert all(torch.isfinite(t.grad).all() and t.grad.abs().max() > 0
+               for t in (x, ones, w))
+
+
+@pytest.mark.cuda
+def test_forward_only_kernels_raise_on_backward_on_the_card(cuda_device):
+    x = torch.randn(2, 8, 8, 64, device=cuda_device, requires_grad=True)
+    out = gs.groupnorm_silu(x, torch.ones(64, device=cuda_device),
+                            torch.zeros(64, device=cuda_device))
+    with pytest.raises(RuntimeError, match='has no gradient'):
+        out.sum().backward()

@@ -48,6 +48,11 @@ families = chip_smoke.phase_families(
 serve = chip_smoke.phase_serve(torch, cpu, conf=sys.argv[1], seeded=(12, 10),
                                square=16, watch=(13, 7), lr_bucket=8,
                                tile_size=32, batch_size=4, steps=2)
+train = chip_smoke.phase_train(torch, cpu, conf=sys.argv[2], images=4,
+                               image_size=40, steps=3, save_every=2,
+                               resume_to=4, grad_b=2,
+                               grad_lin_shapes=((40, 32),),
+                               grad_attn_shapes=((16, 64),), pallas_size=16)
 bench = chip_smoke.phase_bench(torch, cpu, lr_size=10, tile_size=32,
                                batch_size=4, forward_iters=1, **net)
 profile = chip_smoke.phase_profile(torch, cpu, tile_size=32, batch_size=2,
@@ -72,14 +77,16 @@ print(json.dumps({
     'smoke_imported': smoke_imported, 'port_imported': foreign(),
     'sampler': [type(sampler.wrapper).__name__, sampler.wrapper.sampler],
     'ok': [kernels['ok'], slice_['ok'], slice_pallas['ok'], deep_cache['ok'],
-           families['ok'], serve['ok'], bench['ok'], profile['ok']],
+           families['ok'], serve['ok'], train['ok'], bench['ok'],
+           profile['ok']],
     'slice': slice_, 'slice_pallas': slice_pallas, 'bench': bench,
     'deep_cache': deep_cache, 'families': families, 'serve': serve,
+    'train': train,
     'kernel_cases': [[c['kernel'], c['b'], c.get('film'), c['dtype'], c['n'],
                       c['bitwise_repeat']] for c in kernels['cases']],
     'profile': profile,
     'summary': chip_smoke.summary(kernels, slice_, slice_pallas, deep_cache,
-                                  families, serve)}))
+                                  families, serve, train)}))
 """
 
 TINY_YAML = """
@@ -88,6 +95,24 @@ unet_dim: 16
 ddpm_unet_dim_mults: '1,2'
 full_attn: 'False,True'
 learned_sinusoidal_dim: 8
+"""
+
+# the training YAML's keys at a tiny size: 16-px HR and 4-px LR crops
+TINY_TRAIN_YAML = TINY_YAML + """
+prefix: tiny_train
+hr_image_size: 16
+lr_image_size: 4
+scale_size: 20
+batch_size: 2
+num_workers: 1
+n_fold: 10
+train_fold: '0'
+epochs: 20
+warmup_epochs: 1
+ema_decay: 0.999
+skip_val: true
+test_target: best_loss
+compute_dtype: bfloat16
 """
 
 
@@ -99,7 +124,10 @@ def _env(**extra):
 def rehearsal(tmp_path_factory):
     conf = tmp_path_factory.mktemp('hygiene') / 'tiny.yaml'
     conf.write_text(TINY_YAML)
-    res = subprocess.run([sys.executable, '-c', _SLICE, str(conf)], cwd=REPO,
+    train_conf = conf.with_name('tiny_train.yaml')
+    train_conf.write_text(TINY_TRAIN_YAML)
+    res = subprocess.run([sys.executable, '-c', _SLICE, str(conf),
+                          str(train_conf)], cwd=REPO,
                          env=_env(), capture_output=True, text=True,
                          timeout=600)
     assert res.returncode == 0, res.stderr[-3000:]
@@ -113,7 +141,7 @@ def test_port_and_chip_smoke_phases_import_no_jax(rehearsal):
     assert rep['smoke_imported'] == [], rep['smoke_imported']
     assert rep['port_imported'] == [], rep['port_imported']
     assert rep['sampler'] == ['ContinuousDiffusion', 'dpmpp']
-    assert rep['ok'] == [True] * 8
+    assert rep['ok'] == [True] * 9
     s = rep['slice']
     # downs_0_2 and ups_1_2 are linear; downs_1_2, mid_attn and ups_0_2 full
     assert s['forwards'] > 0
@@ -198,6 +226,44 @@ def test_rehearsed_serve_phase_drives_the_daemon(rehearsal):
     assert sv['stats']['served'] == 6 and sv['stats']['errors'] == 2
     assert set(sv['launches'].values()) == {0}
     assert sv['healthz_ms_while_busy'] < 2000
+
+
+def test_rehearsed_train_phase_trains_resumes_and_checks(rehearsal):
+    """The train phase on the CPU: main path, resume, checkpoint handoff,
+    the use_pallas refusal, remat and the Functions' gradients all hold; the
+    plain versions launch no kernel, and the backward recompute runs once
+    per attention block and step."""
+    tr = rehearsal['train']
+    assert tr['ok'] and all(tr['checks'].values()), tr['checks']
+    assert tr['per_forward']['linattn_block'] == 2
+    assert tr['per_forward']['attn_block'] == 3
+    assert set(tr['launches'].values()) == {0}
+    assert len(tr['losses']) == tr['resume_to'] == 4
+    assert tr['ms_per_step'] > 0 and tr['data_path'] in ('native', 'pil')
+    assert {'data', 'step', 'save'} <= set(tr['phase_breakdown'])
+    assert {r['calls_per_step'] for r in tr['recompute_per_step'].values()} \
+        == {2.0, 3.0}
+    assert tr['remat']['plain']['losses'][0] == \
+        tr['remat']['remat']['losses'][0]
+    cases = {(c['kernel'], c['dtype']) for c in tr['grad_cases']}
+    assert cases == {(k, d) for k in ('linattn_block', 'attn_block')
+                     for d in ('bfloat16', 'float32')}
+
+
+def test_train_on_cuda_without_a_card_raises(monkeypatch, tmp_path):
+    """``--device cuda`` (the default) with no card raises before any
+    work: no CPU fallback."""
+    from srgd_tpu_torch.train import loop
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    args = loop.parse_args(['-c', os.path.join(REPO, 'conf',
+                                               'trained_evidence_dim128_synth.yaml')])
+    assert args.device == 'cuda'
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        loop.main(['-c', os.path.join(REPO, 'conf',
+                                      'trained_evidence_dim128_synth.yaml'),
+                   '--data_dir', str(tmp_path), '--out_dir',
+                   str(tmp_path / 'run'), '--steps', '1'])
+    assert not (tmp_path / 'run').exists()
 
 
 def test_server_on_cuda_without_a_card_raises(monkeypatch):
@@ -305,13 +371,37 @@ def _yaml_cases():
     return sorted(n for n in os.listdir(conf_dir) if n.endswith('.yaml'))
 
 
+def _code_of(path: str, rename=('', '')) -> str:
+    """The AST of a Python module without its docstrings, with import
+    names starting ``rename[0]`` starting ``rename[1]`` instead."""
+    with open(path) as fp:
+        tree = ast.parse(fp.read())
+    for node in ast.walk(tree):
+        body = getattr(node, 'body', None)
+        if isinstance(body, list) and body and \
+                isinstance(body[0], ast.Expr) and \
+                isinstance(body[0].value, ast.Constant) and \
+                isinstance(body[0].value.value, str):
+            node.body = body[1:] or [ast.Pass()]
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.module and \
+                node.module.startswith(rename[0]):
+            node.module = rename[1] + node.module[len(rename[0]):]
+    return ast.dump(tree)
+
+
 @pytest.mark.parametrize('case', ['defaults', 'converter', 'numeric_strings',
+                                  'train_data', 'train_native_source',
                                   *_yaml_cases()])
 def test_port_copies_equal_their_originals(case, tmp_path):
-    """``srgd_tpu_torch/config.py`` and the converter in
-    ``srgd_tpu_torch/checkpoint.py`` are the port's own copies: the same
-    YAML through both ``load_config``s gives equal fields, and a small JAX
-    param tree through both converters gives equal state dicts."""
+    """``srgd_tpu_torch/config.py``, the converter in
+    ``srgd_tpu_torch/checkpoint.py``, ``train/data.py`` and
+    ``train/native/degrade_native.c`` are the port's own copies: the same
+    YAML through both ``load_config``s gives equal fields, a small JAX
+    param tree through both converters gives equal state dicts, the data
+    pipeline's code is the original's but for its docstrings and the import
+    of the native helpers, and the C source is the original's, byte for
+    byte."""
     import dataclasses
 
     import numpy as np
@@ -320,6 +410,18 @@ def test_port_copies_equal_their_originals(case, tmp_path):
     from srgd_tpu.checkpoint import torch_convert as jconvert
     from srgd_tpu_torch import checkpoint as tcheckpoint
     from srgd_tpu_torch import config as tconfig
+
+    if case == 'train_data':
+        assert _code_of(os.path.join(REPO, 'srgd_tpu_torch/train/data.py')) \
+            == _code_of(os.path.join(REPO, 'srgd_tpu/train/data.py'),
+                        ('srgd_tpu.train', 'srgd_tpu_torch.train'))
+        return
+    if case == 'train_native_source':
+        name = 'train/native/degrade_native.c'
+        with open(os.path.join(REPO, 'srgd_tpu_torch', name), 'rb') as a, \
+                open(os.path.join(REPO, 'srgd_tpu', name), 'rb') as b:
+            assert a.read() == b.read()
+        return
 
     if case == 'converter':
         import jax

@@ -162,9 +162,15 @@ def test_build_from_config_maps_the_kernel_flags():
                ddpm_unet_dim_mults='1,2', full_attn='False,True'),
         device='meta')
     assert not any(getattr(m, 'use_pallas', False) for m in default.modules())
-    for bad in (dict(quantize='w8a8'), dict(remat_unet=True)):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            build_unet_from_config(Config(**bad), device='meta')
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        build_unet_from_config(Config(quantize='w8a8'), device='meta')
+    # remat_unet wraps the blocks in checkpoint: the same parameters
+    remat = build_unet_from_config(
+        Config(model='conditional_continuous', unet_dim=8,
+               ddpm_unet_dim_mults='1,2', full_attn='False,True',
+               remat_unet=True), device='meta')
+    assert remat.remat and not default.remat
+    assert sorted(remat.state_dict()) == sorted(default.state_dict())
     # DeepCache is a sampler option: the net is the same
     cached = build_unet_from_config(
         Config(model='conditional_continuous', unet_dim=8,
