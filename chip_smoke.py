@@ -8,7 +8,7 @@ Phases, each printed as one JSON line:
 1. device: the card's name and power limit (nvidia-smi), CUDA version; TF32
    is switched off for matmuls and convolutions.
 2. build: the CUDA kernels are compiled from ``srgd_tpu_torch/csrc``.
-3. kernels: each of the six kernels against its plain PyTorch version at every
+3. kernels: each of the six TPU kernels' ports against its plain PyTorch version at every
    flagship shape (b = 8; ``groupnorm_silu`` with and without FiLM; every
    kernel's largest shape also at b = 16, the batch class CFG gives) in
    bfloat16 and float32 (the four tensor-core kernels, ``attention``,
@@ -81,10 +81,25 @@ Phases, each printed as one JSON line:
    first loss with less peak memory. ms per train step, the loop's phase
    breakdown, the backward recompute's ms per step (profiler ranges), peak
    memory and the data path (native or PIL).
-10. bench: one U-Net forward (b = 8 tiles of 256 px) and one even and one odd
+10. int8: W8A8 inference on the serving YAML at full width (``quantize:
+   w8a8`` at 512 channels, bf16, random weights from a seed). ``int8_conv``
+   (the s8 x s8 -> s32 implicit-GEMM kernel that replaces QuantConv's XLA
+   conv) at every distinct shape of one b = 8 forward, bit for bit against
+   its plain version (bf16 output and int32 accumulators), with its ms, the
+   plain version's, the bound and a bf16 ``F.conv2d`` of the same shape (a
+   different function, for scale); one forward of the bf16 net and of the
+   int8 net with dynamic and with calibrated scales, each int8 one within
+   0.10 of the bf16 one relative to its largest value, launching every
+   QuantConv once, the linear attentions but the quantized one through
+   ``linattn_block``, its core through ``linear_attention_qkv`` and the
+   full attentions through ``attn_block``; ``srgd_tpu_torch.infer
+   --precision int8 --quant_calibrate --quant_calibrate_cache`` twice on a
+   128-px input (the second run loads the cache); and one ``--precision
+   int8`` request through ``srgd_tpu_torch.serve``.
+11. bench: one U-Net forward (b = 8 tiles of 256 px) and one even and one odd
    step of a 512-px LR input (2304 canvas), for the default net and for the
    ``use_pallas`` net.
-11. profile, only with ``--profile``: ``torch.profiler`` over three forwards of
+12. profile, only with ``--profile``: ``torch.profiler`` over three forwards of
    each net, device time per kernel name, per kernel of the port (summed
    over all its launches and shapes, and its device kernels per forward)
    and per group of PyTorch's own kernels, and the device time of single
@@ -137,7 +152,7 @@ PALLAS_VS_DEFAULT_MAX = 0.05
 
 # NVIDIA H100 SXM data sheet: device memory rate and dense peak rates
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
+PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12, 'int8': 1979e12}
 
 # name -> (TPU kernel it replaces, CUDA source, wrapper module, counter)
 KERNELS = {
@@ -155,7 +170,13 @@ KERNELS = {
     'linear_attention_qkv': ('srgd_tpu/kernels/linear_attention.py:197',
                              'linear_attention.cu', 'linear_attention',
                              'launches_qkv'),
+    # not a Pallas kernel: the XLA int8 conv of QuantConv (phase int8)
+    'int8_conv': ('srgd_tpu/nn/quant.py:165', 'int8_conv.cu', 'int8_conv',
+                  'launches'),
 }
+# the phases whose launches count as the main paths' in the summary
+MAIN_PATHS = ('slice', 'slice_pallas', 'deep_cache', 'families', 'serve',
+              'train', 'int8')
 OFF_PATH = ('linear_attention',)   # a public entry that no module calls
 PALLAS_FLAGS = dict(use_pallas=True, use_pallas_attention=True,
                     fused_linattn=False)
@@ -475,18 +496,24 @@ def _per_forward(mods) -> dict:
     """Launches of each kernel that one pass through the modules ``mods``
     makes: one per module that routes to it."""
     from srgd_tpu_torch.nn.layers import Attention, Block, LinearAttention
+    from srgd_tpu_torch.nn.quant import QuantConv
     blocks = [m for m in mods if isinstance(m, Block)]
     linear = [m for m in mods if isinstance(m, LinearAttention)]
     full = [m for m in mods if isinstance(m, Attention)]
     # bf16 with `fused` keeps the whole-block kernel under use_pallas
     to_flash = [m for m in full if m.use_pallas and not m.fused]
+    # a quantized linear attention leaves linattn_block for the submodules
+    unfused = [m for m in linear if m.use_pallas or m.quant is not None]
     return {
-        'linattn_block': sum(not m.use_pallas for m in linear),
+        'linattn_block': len(linear) - len(unfused),
         'attn_block': len(full) - len(to_flash),
         'groupnorm_silu': sum(m.use_pallas for m in blocks),
         'attention': len(to_flash),
         'linear_attention': 0,
-        'linear_attention_qkv': sum(m.use_pallas for m in linear),
+        'linear_attention_qkv': len(unfused),
+        # every QuantConv once (the nets here have no quant + use_pallas
+        # linear attention, whose to_out may run in float)
+        'int8_conv': sum(isinstance(m, QuantConv) for m in mods),
     }
 
 
@@ -1155,6 +1182,310 @@ def phase_serve(torch, device, *, conf=SERVING_YAML, seeded=(96, 80),
     return res
 
 
+def _int8_wrapper(torch, device, conf, quantize, min_channels, seed):
+    """The serving YAML through the port's factory, bf16, random weights
+    from ``seed``: quantize 'none' or 'w8a8' at ``min_channels``."""
+    from srgd_tpu_torch.config import load_config
+    from srgd_tpu_torch.factory import get_model
+    c = load_config(conf)
+    c.seed, c.compute_dtype = seed, 'bfloat16'
+    c.quantize, c.quantize_min_channels = quantize, min_channels
+    return get_model(c, ckpt_path='', device=device)[0]
+
+
+def _conv_shapes(torch, net, run):
+    """((b, h, w, cin, cout, ks), calls) of every QuantConv call in ``run()``,
+    in first-call order."""
+    from srgd_tpu_torch.nn.quant import quant_convs
+    calls = {}
+
+    def hook(m, inputs, _):
+        b, c, h, w = inputs[0].shape
+        key = (b, h, w, c, m.out_channels, m.kernel_size[0])
+        calls[key] = calls.get(key, 0) + 1
+
+    handles = [m.register_forward_hook(hook) for _, m in quant_convs(net)]
+    try:
+        run()
+    finally:
+        for h in handles:
+            h.remove()
+    return list(calls.items())
+
+
+def int8_case(torch, device, shape, gen):
+    """int8_conv at one shape (bf16 output, as in the net) against its plain
+    version: (the case, the make-the-calls dict)."""
+    import torch.nn.functional as F
+
+    from srgd_tpu_torch.kernels import int8_conv as ic
+    b, h, w, cin, cout, ks = shape
+    xq = torch.randint(-127, 128, (b, h, w, cin), generator=gen,
+                       device=device, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (cout, ks, ks, cin), generator=gen,
+                       device=device, dtype=torch.int8)
+    scale = torch.rand(cout, generator=gen, device=device) * 1e-4
+    bias = torch.randn(cout, generator=gen, device=device)
+    kw = dict(padding=ks // 2, out_dtype=torch.bfloat16)
+    # a bf16 convolution of the same shape: another function, for scale
+    xb = xq.permute(0, 3, 1, 2).to(torch.bfloat16)
+    wb = wq.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    m, k = b * h * w, ks * ks * cin
+    return {
+        'kern': lambda: ic.int8_conv(xq, wq, scale, bias, **kw),
+        'plain': lambda: ic.int8_conv_plain(xq, wq, scale, bias, **kw),
+        'acc': lambda: ic.int8_conv(xq, wq, padding=ks // 2,
+                                    out_dtype=torch.int32),
+        'acc_plain': lambda: ic.int8_conv_plain(xq, wq, padding=ks // 2,
+                                                out_dtype=torch.int32),
+        'bf16_conv': lambda: F.conv2d(xb, wb, bias.to(torch.bfloat16),
+                                      padding=ks // 2),
+        # xq and wq read once, scale and bias, the bf16 output written once
+        'bytes': m * cin + cout * k + 8 * cout + 2 * m * cout,
+        'ops': 2 * m * cout * k,
+    }
+
+
+def phase_int8(torch, device, *, conf=SERVING_YAML, min_channels=512,
+               batch_size=8, tile_size=256, cal_batch=4, cli_size=128,
+               cli_steps=2, serve_size=64, serve_steps=4, iters=5,
+               forward_iters=3, seed=0):
+    """W8A8 int8 inference on the serving YAML at full width (bf16, random
+    weights from ``seed``, ``quantize: w8a8`` at ``min_channels``):
+
+    - ``int8_conv`` at every distinct shape of one int8 forward (b =
+      ``batch_size`` tiles) against its plain version, bit for bit (the bf16
+      output and the int32 accumulators), with the ms of both (L2 flushed),
+      the bound, and the ms of a bf16 ``F.conv2d`` of the same shape (a
+      different function, for scale); the kernel's ms per forward;
+    - one forward each of the bf16 net, the int8 net with dynamic scales and
+      with calibrated ones (``calibrate_sampler``, ``cal_batch`` tiles):
+      their ms, their launches (every QuantConv, the linear attentions but
+      the quantized one, the full attentions, the quantized one's core), and
+      max|y_int8 - y_bf16| / max|y_bf16| < 0.10, the bar of
+      tests/test_quant.py:77;
+    - ``srgd_tpu_torch.infer`` with ``--precision int8 --quant_calibrate
+      --quant_calibrate_cache`` twice on a ``cli_size`` input: finite
+      outputs in [0, 1] of 4x the size, the first run calibrating and
+      writing the cache, the second loading it;
+    - one ``--precision int8`` request through ``srgd_tpu_torch.serve``.
+
+    The launches of the forwards, both CLI runs and the request are the
+    phase's ``launches``."""
+    import os
+    import tempfile
+
+    import numpy as np
+    from PIL import Image
+
+    from srgd_tpu_torch import infer
+    from srgd_tpu_torch.nn import quant
+    from srgd_tpu_torch.serve import Server, parse_args
+    on_card = device.type == 'cuda'
+    here = os.path.dirname(os.path.abspath(__file__))
+    conf = os.path.join(here, conf)
+    checks = {}
+    res = {'phase': 'int8', 'min_channels': min_channels,
+           'batch_size': batch_size, 'tile_size': tile_size}
+    total = dict.fromkeys(KERNELS, 0)
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    # -- one forward of each net ---------------------------------------------
+    bf16 = _int8_wrapper(torch, device, conf, 'none', min_channels, seed)
+    int8 = _int8_wrapper(torch, device, conf, 'w8a8', min_channels, seed)
+    checks['same_weights'] = all(
+        torch.equal(a, b) for a, b in zip(bf16.net.state_dict().values(),
+                                          int8.net.state_dict().values()))
+    x, t, fwd = _forward_inputs(torch, device, batch_size, tile_size, seed)
+
+    def forward(net):
+        def run():
+            with torch.inference_mode():
+                return net(x, t, **fwd)
+        return run
+
+    y_bf16 = forward(bf16.net)()
+    ref_max = y_bf16.float().abs().max().item()
+    shapes = _conv_shapes(torch, int8.net, forward(int8.net))
+    expected, per_forward = _expected_launches(int8.net, on_card)
+    res['per_forward'] = per_forward
+    nets = {}
+    for name in ('dynamic', 'calibrated'):
+        if name == 'calibrated':
+            t0 = time.perf_counter()
+            checks['calibrated'] = quant.calibrate_sampler(
+                int8, generator=torch.Generator().manual_seed(seed),
+                tile_size=tile_size, batch=cal_batch)
+            if on_card:
+                torch.cuda.synchronize()
+            res['calibrate_seconds'] = time.perf_counter() - t0
+        reset_counts()
+        y = forward(int8.net)()
+        if on_card:
+            torch.cuda.synchronize()
+        launches = read_counts()
+        add(launches)
+        rel = (y.float() - y_bf16.float()).abs().max().item() / ref_max
+        checks[f'{name}_within_0.10_of_bf16'] = rel < 0.10
+        checks[f'{name}_finite'] = bool(torch.isfinite(y).all())
+        for k in KERNELS:
+            checks[f'{name}_{k}_launches'] = launches[k] == expected[k]
+        nets[name] = {'rel_err_vs_bf16': rel, 'launches': launches,
+                      'ms': time_ms(torch, forward(int8.net), device,
+                                    forward_iters)}
+    nets['bf16'] = {'ms': time_ms(torch, forward(bf16.net), device,
+                                  forward_iters)}
+    res['forwards'] = nets
+    del bf16
+
+    # -- the kernel at the forward's shapes ------------------------------------
+    gen = torch.Generator(device=device).manual_seed(seed + 7)
+    flush = (torch.empty(64 << 20, dtype=torch.uint8, device=device)
+             if on_card else None)
+    cases = []
+    for shape, calls in shapes:
+        case = int8_case(torch, device, shape, gen)
+        got, want = case['kern'](), case['plain']()
+        acc_equal = torch.equal(case['acc'](), case['acc_plain']())
+        if on_card:
+            torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        by_bytes = case['bytes'] / HBM_BYTES_PER_S * 1e3
+        by_ops = case['ops'] / PEAK_FLOPS['int8'] * 1e3
+        b, h, w, cin, cout, ks = shape
+        cases.append({
+            'kernel': 'int8_conv', 'b': b, 'n': h * w, 'c': cin,
+            'cout': cout, 'ks': ks, 'calls_per_forward': calls,
+            'dtype': 'bfloat16', 'max_abs_err': err,
+            'rms_err': (got.float() - want.float()).square().mean().sqrt()
+            .item(),
+            'bitwise': bool(torch.equal(got, want)),
+            'accumulators_bitwise': acc_equal,
+            'ms': time_ms(torch, case['kern'], device, iters, flush),
+            'plain_ms': time_ms(torch, case['plain'], device, iters, flush),
+            'library_ms': None,
+            'bf16_conv2d_ms': time_ms(torch, case['bf16_conv'], device,
+                                      iters, flush),
+            'bytes': case['bytes'], 'ops': case['ops'],
+            'bound_ms': max(by_bytes, by_ops),
+            'bound_by': 'bytes' if by_bytes >= by_ops else 'operations'})
+        del got, want, case
+    checks['kernel_bitwise'] = all(c['bitwise'] and c['accumulators_bitwise']
+                                   for c in cases)
+    res['kernel_cases'] = cases
+    res['int8_conv_per_forward'] = {
+        'launches': sum(c['calls_per_forward'] for c in cases),
+        'ms': sum(c['ms'] * c['calls_per_forward'] for c in cases),
+        'bound_ms': sum(c['bound_ms'] * c['calls_per_forward']
+                        for c in cases),
+        'bf16_conv2d_ms': sum(c['bf16_conv2d_ms'] * c['calls_per_forward']
+                              for c in cases)}
+    del int8
+
+    # -- the CLI, twice: calibrate and write the cache, then load it ----------
+    work = tempfile.TemporaryDirectory()
+    in_dir = os.path.join(work.name, 'in')
+    os.makedirs(in_dir)
+    Image.fromarray(np.random.default_rng(seed).integers(
+        0, 255, size=(cli_size, cli_size, 3), dtype=np.uint8)).save(
+            os.path.join(in_dir, 'a.png'))
+    cache = os.path.join(work.name, 'cal.npz')
+    calibrations = []
+    real_calibrate = quant.calibrate_sampler
+
+    def calibrate(*a, **k):
+        calibrations.append(1)
+        return real_calibrate(*a, **k)
+
+    quant.calibrate_sampler = calibrate
+    cli = []
+    try:
+        for attempt in range(2):
+            out_dir = os.path.join(work.name, f'out{attempt}')
+            args = infer.parse_args([
+                '-c', conf, '-m', '', '--input_dir', in_dir, '--output_dir',
+                out_dir, '--precision', 'int8', '--quantize_min_channels',
+                str(min_channels), '--quant_calibrate',
+                '--quant_calibrate_cache', cache, '--num_sample_steps',
+                str(cli_steps), '--tile_size', str(tile_size), '--batch_size',
+                str(batch_size), '--test_label', '1', '--seed', str(seed),
+                '--device', device.type])
+            reset_counts()
+            t0 = time.perf_counter()
+            sampler = infer.build_sampler(args)
+            build_s = time.perf_counter() - t0
+            outs, sample = [], sampler.sample
+
+            def kept(*a, **k):
+                outs.append(sample(*a, **k))
+                return outs[-1]
+
+            sampler.sample = kept
+            t0 = time.perf_counter()
+            infer.run(args, sampler)
+            if on_card:
+                torch.cuda.synchronize()
+            launches = read_counts()
+            add(launches)
+            out = outs[0] if outs else np.zeros(0)
+            png = os.path.join(out_dir, 'a_out.png')
+            cli.append({
+                'build_and_calibrate_seconds': build_s,
+                'sample_seconds': time.perf_counter() - t0,
+                'calibrated': len(calibrations), 'launches': launches,
+                'shape': list(out.shape),
+                'ok': bool(out.shape == (1, 4 * cli_size, 4 * cli_size, 3)
+                           and np.isfinite(out).all() and out.min() >= 0
+                           and out.max() <= 1 and os.path.exists(png)
+                           and Image.open(png).size == (4 * cli_size,) * 2
+                           and os.path.exists(cache)
+                           and quant.has_calibration(sampler.wrapper.net))})
+            del sampler
+    finally:
+        quant.calibrate_sampler = real_calibrate
+        work.cleanup()
+    checks['cli_outputs'] = all(r['ok'] for r in cli)
+    checks['cli_first_calibrates_second_loads'] = [
+        r['calibrated'] for r in cli] == [1, 1]
+    checks['cli_launched_int8_conv'] = all(
+        r['launches']['int8_conv'] > 0 for r in cli) or not on_card
+    res['cli'] = cli
+
+    # -- one --precision int8 request through the daemon ----------------------
+    server = Server(parse_args([
+        '-c', conf, '-m', '', '--mode', 'http', '--device', device.type,
+        '--precision', 'int8', '--quantize_min_channels', str(min_channels),
+        '--continuous_sampler', 'ddim', '--ddim_eta',
+        '1.0', '--num_sample_steps', str(serve_steps), '--tile_size',
+        str(tile_size), '--batch_size', str(batch_size), '--test_label', '0',
+        '--lr_bucket', '64']))
+    img = Image.fromarray(np.random.default_rng(seed + 1).integers(
+        0, 255, size=(serve_size, serve_size, 3), dtype=np.uint8))
+    reset_counts()
+    t0 = time.perf_counter()
+    sr = server.super_resolve(img, seed=5)
+    if on_card:
+        torch.cuda.synchronize()
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()
+    add(launches)
+    checks['serve_int8_request'] = (
+        sr.size == (4 * serve_size,) * 2
+        and server.model_info['precision'] == 'int8'
+        and (launches['int8_conv'] > 0 or not on_card))
+    res['serve'] = {'ms': serve_ms, 'launches': launches,
+                    'model_info': server.model_info}
+    del server
+
+    res.update({'ok': all(checks.values()), 'checks': checks,
+                'launches': total})
+    return res
+
+
 TRAIN_YAML = 'conf/trained_evidence_dim128_synth.yaml'
 # (n, c) of the flagship's linear- and full-attention blocks at which the
 # train phase holds each Function's gradients to the plain version's
@@ -1571,7 +1902,7 @@ DEVICE_KERNELS = {
     'flash_mma': 'attention', 'kv_partials': 'linear_attention_qkv',
     'out_rows': 'linear_attention_qkv',
     'kv_partials_mma': 'linear_attention_qkv',
-    'out_rows_mma': 'linear_attention_qkv'}
+    'out_rows_mma': 'linear_attention_qkv', 'int8_conv_kernel': 'int8_conv'}
 # the float32 device kernels: a bfloat16 net must spend no time in them
 F32_ONLY_KERNELS = ('phase_a', 'phase_b', 'flash', 'qkv_proj', 'attend',
                     'kv_partials', 'out_rows')
@@ -1810,9 +2141,9 @@ def phase_profile(torch, device, *, tile_size=256, batch_size=8, seed=0,
 def summary(kernels, *paths):
     """One entry per kernel: ``launches``, its launches on the main paths
     (``slice``, ``slice_pallas``, ``deep_cache``, ``families``, ``serve``,
-    ``train``; each run counted from 0 around that run alone), the largest
-    error over its
-    cases, and the times and bound of its first bfloat16 case.
+    ``train``, ``int8``; each run counted from 0 around that run alone), the
+    largest error over its cases (``int8_conv``'s are the int8 phase's), and
+    the times and bound of its first bfloat16 case.
     ``drive_launches`` counts launches outside any path: no module calls
     ``linear_attention``, so its ``launches`` is 0 and the one direct call of
     ``slice_pallas`` stands there."""
@@ -1821,9 +2152,11 @@ def summary(kernels, *paths):
     slice_pallas = next(p for p in paths if p['phase'] == 'slice_pallas')
     drive = {**dict.fromkeys(KERNELS, 0),
              'linear_attention': slice_pallas['entry_pair']['drive_launches']}
+    cases = kernels['cases'] + [c for p in paths
+                                for c in p.get('kernel_cases', ())]
     out = []
     for name, (replaces, source, _, _) in KERNELS.items():
-        mine = [c for c in kernels['cases'] if c['kernel'] == name]
+        mine = [c for c in cases if c['kernel'] == name]
         main = next(c for c in mine if c['dtype'] == 'bfloat16')
         out.append({'name': name, 'route': 'cuda',
                     'source': f'srgd_tpu_torch/csrc/{source}',
@@ -1855,7 +2188,7 @@ def main() -> int:
     emit(dev)
     emit(phase_build())
     todo = [phase_kernels, phase_slice, phase_slice_pallas, phase_deep_cache,
-            phase_families, phase_serve, phase_train, phase_bench]
+            phase_families, phase_serve, phase_train, phase_int8, phase_bench]
     if '--profile' in sys.argv[1:]:
         todo.append(phase_profile)
     phases = []
@@ -1863,7 +2196,8 @@ def main() -> int:
         phases.append(phase(torch, device))
         emit(phases[-1])
         torch.cuda.synchronize()
-    table = summary(phases[0], *phases[1:7])
+    table = summary(phases[0], *[p for p in phases
+                                 if p['phase'] in MAIN_PATHS])
     emit(table)
     failed = [p['phase'] for p in phases if not p['ok']]
     # a kernel no module calls is held to its direct drive instead

@@ -155,13 +155,75 @@ _LOG_SNR_LAYERS = {'l1': 'net.1.net', 'l2': 'net.2.fn.0.net',
 _SCHEDULE_PREFIX = 'log_snr.'
 
 
+# the calibration collections of the JAX variables (srgd_tpu/nn/quant.py):
+# static activation stats, their per-time stacks, and the stacks' net times
+STATS_TIMES = 'quant_stats_times'
+_STATS_COLLECTIONS = {'quant_stats': '', 'quant_stats_t': '_t'}
+_STAT_NAMES = ('act_scale', 'act_amax_ch')
+
+
+def flax_path(module_name: str) -> str:
+    """The JAX U-Net's '/'-joined path of the conv that is the port's module
+    ``module_name``: ``downs.3.0.block1.proj`` -> ``downs_3_0/block1/proj``,
+    ``ups.1.2.to_out.0`` -> ``ups_1_2/to_out``, an upsampler's or
+    downsampler's conv (``ups.0.3.net.0``, ``downs.0.3.1``) -> ``.../conv``,
+    a last stage's bare conv ``downs.3.3`` -> ``downs_3_3``."""
+    parts = module_name.split('.')
+    if parts[0] in ('downs', 'ups'):
+        head, rest = '_'.join(parts[:3]), parts[3:]
+    else:
+        head, rest = parts[0], parts[1:]
+    rest = {('to_out', '0'): ['to_out'], ('net', '0'): ['conv'],
+            ('1',): ['conv']}.get(tuple(rest), rest)
+    return '/'.join([head, *rest])
+
+
+def module_name(path: str, *, pixel_shuffle_upsample: bool = True) -> str:
+    """The inverse of ``flax_path`` for the quantized convs of the U-Net."""
+    parts = path.split('/')
+    stage = re.fullmatch(r'(downs|ups)_(\d+)_(\d+)', parts[0])
+    head, rest = ('.'.join(stage.groups()) if stage else parts[0]), parts[1:]
+    if rest == ['to_out']:                 # linear attention: (conv, RMSNorm)
+        rest = ['to_out', '0']
+    elif rest == ['conv']:
+        shuffle = stage.group(1) == 'ups' and pixel_shuffle_upsample
+        rest = ['net', '0'] if shuffle else ['1']
+    return '.'.join([head, *rest])
+
+
+def _flatten(tree: dict, prefix: str = '') -> dict:
+    """A nested dict's leaves under '/'-joined keys."""
+    out = {}
+    for k, v in tree.items():
+        key = f'{prefix}{k}'
+        if isinstance(v, dict):
+            out.update(_flatten(v, key + '/'))
+        else:
+            out[key] = v
+    return out
+
+
 def state_dict_from_jax(params, *, pixel_shuffle_upsample: bool = True):
     """JAX params -> the port's state dict (float32 CPU tensors). ``params``
     is the U-Net's param tree, or the whole tree ``{'params': unet[,
-    'log_snr': schedule]}``, whose learned schedule becomes the reference's
-    ``log_snr.*`` entries (kernels (in, out) transposed to (out, in))."""
-    schedule = None
+    'log_snr': schedule][, 'quant_stats': ...]}``, whose learned schedule
+    becomes the reference's ``log_snr.*`` entries (kernels (in, out)
+    transposed to (out, in)), and whose calibration collections
+    (``quant_stats``, ``quant_stats_t``, ``quant_stats_times``) become
+    entries '<module>.act_scale', '<module>.act_amax_ch' (``_t`` for the
+    per-time stacks) and ``quant_stats_times``: the quantized convs'
+    buffers, which ``split_quant_stats`` separates for
+    ``nn.quant.load_stats``."""
+    schedule, stats = None, {}
     if 'params' in params:
+        for col, suffix in _STATS_COLLECTIONS.items():
+            for path, v in _flatten(params.get(col, {})).items():
+                conv, _, stat = path.rpartition('/')
+                name = module_name(
+                    conv, pixel_shuffle_upsample=pixel_shuffle_upsample)
+                stats[f'{name}.{stat}{suffix}'] = v
+        if STATS_TIMES in params:
+            stats[STATS_TIMES] = params[STATS_TIMES]
         params, schedule = params['params'], params.get('log_snr')
     sd = flax_to_torch_unet_state_dict(params,
                                        pixel_shuffle_upsample=pixel_shuffle_upsample)
@@ -170,7 +232,20 @@ def state_dict_from_jax(params, *, pixel_shuffle_upsample: bool = True):
             sd[f'{_SCHEDULE_PREFIX}{key}.weight'] = np.transpose(
                 schedule[layer]['kernel'], (1, 0))
             sd[f'{_SCHEDULE_PREFIX}{key}.bias'] = schedule[layer]['bias']
+    sd.update(stats)
     return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
+
+
+def split_quant_stats(state_dict) -> tuple[dict, dict]:
+    """(the parameters, the quantized convs' calibration stats) of a state
+    dict from ``state_dict_from_jax``; the second is empty without
+    calibration."""
+    params, stats = {}, {}
+    for key, val in state_dict.items():
+        is_stat = (key == STATS_TIMES
+                   or key.rpartition('.')[2].removesuffix('_t') in _STAT_NAMES)
+        (stats if is_stat else params)[key] = val
+    return params, stats
 
 
 def split_schedule(state_dict) -> tuple[dict, dict]:

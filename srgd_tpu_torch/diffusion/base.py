@@ -17,6 +17,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from srgd_tpu_torch.nn.quant import quant_convs
 from srgd_tpu_torch.tiling import extract_tiles, zero_margin
 
 GUIDANCE_NONE = 'none'
@@ -283,14 +284,31 @@ class NoCache:
         return fn()
 
 
+def select_time_stats(net, time_scalar) -> None:
+    """Per-time int8 calibration (``nn.quant.calibrate_sampler`` with
+    ``per_time``): every quantized conv of ``net`` takes the stats of the
+    calibration time nearest ``time_scalar``, the net's time input (argmin
+    of |times - t|, the first index winning a tie, as
+    ``srgd_tpu.diffusion.base.select_time_stats``). On the device: the pick
+    is an index tensor, never read back. A no-op without per-time stats."""
+    times = getattr(net, 'quant_stats_times', None)
+    if times is None:
+        return
+    idx = torch.argmin(torch.abs(times - time_scalar))
+    for _, m in quant_convs(net):
+        m.select(idx)
+
+
 def nhwc_net_apply(net, cache_depth: int):
     """The denoiser on (B, H, W, C) tensors: the net runs on NCHW views of
     the same memory (channels_last) and returns float32 (B, H, W, C). The
     DeepCache keywords pass through with ``cache_depth``; the cache stays in
-    the net's NCHW layout."""
+    the net's NCHW layout. This is every family's ``net_apply`` boundary,
+    where ``select_time_stats`` runs on ``time_b[0]``."""
     def apply(x, time_b, cond, class_label, class_mask, **cache_kw):
         def nchw(t):
             return None if t is None else t.permute(0, 3, 1, 2)
+        select_time_stats(net, time_b[0])
         if cache_kw:
             cache_kw['cache_depth'] = cache_depth
         out = net(nchw(x), time_b, cond=nchw(cond), class_label=class_label,

@@ -145,6 +145,11 @@ class ContinuousDiffusion:
         return make_log_snr_table(self.noise_schedule,
                                   np.linspace(1.0, 0.0, num_steps + 1))
 
+    def calibration_times(self, n: int = 6) -> np.ndarray:
+        """Net time inputs for int8 calibration (``nn.quant``): the log-SNR
+        table at max(n - 1, 1) steps, learned schedule included."""
+        return self.log_snr_table(max(n - 1, 1))
+
     def q_sample_log_snr(self, x_start, log_snr, noise):
         alpha = float(np.sqrt(_sigmoid(log_snr)))
         sigma = float(np.sqrt(_sigmoid(-_f32(log_snr))))

@@ -75,6 +75,12 @@ class ElucidatedDiffusion:
         self.loss_type = loss_type
         self.net_apply = nhwc_net_apply(net, deep_cache_depth)
 
+    def calibration_times(self, n: int = 6) -> np.ndarray:
+        """Net time inputs for int8 calibration (``nn.quant``): c_noise of
+        the Karras schedule's max(n, 2) sigmas, its trailing 0 dropped."""
+        sig = self.edm.sample_schedule(max(n, 2))[:-1]
+        return np.asarray(self.edm.c_noise(sig), np.float32)
+
     def precond_denoise(self, x, sigma, cond, class_label, mode: str,
                         scale: float, deep_cache=None,
                         return_cache: bool = False):

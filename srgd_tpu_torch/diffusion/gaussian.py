@@ -101,6 +101,11 @@ class GaussianDiffusion:
         self.deep_cache_schedule = deep_cache_schedule
         self.net_apply = nhwc_net_apply(net, deep_cache_depth)
 
+    def calibration_times(self, n: int = 6) -> np.ndarray:
+        """Net time inputs for int8 calibration (``nn.quant``): n timestep
+        indices spanning [0, T), float32."""
+        return np.linspace(0, self.timesteps - 1, n, dtype=np.float32)
+
     # x0 / eps conversions: float32 table entries times tensors
     def predict_start_from_noise(self, x, t: int, eps):
         s = self.sched

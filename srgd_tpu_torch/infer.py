@@ -11,10 +11,19 @@ rename, the x4 output-size assert, unreadable inputs skipped, and the
 accepted-but-unused --backend flag.
 
 Port additions: --device (default cuda; asking for cuda without a card
-raises). Flags whose feature is not ported raise, naming the ROADMAP item,
-instead of being ignored. ``yaml`` and ``PIL`` are imported only where the
-CLI needs them. ``--use_pallas`` keeps the JAX CLI's name: it switches the
-U-Net to the second kernel set (``conf.use_pallas_kernels``).
+raises). Flags whose feature is not ported (``--mesh``) raise, naming the
+ROADMAP item, instead of being ignored.
+
+``--precision int8`` is the JAX CLI's W8A8 path: bf16 compute with the
+U-Net's convs at least ``--quantize_min_channels`` wide (512 by default)
+run as int8 (``nn.quant``, the ``int8_conv`` kernel), with dynamic
+activation scales, or static ones with ``--quant_calibrate``, recorded once
+at start-up (``--quant_calibrate_per_time``: one set per noise level;
+``--quant_cal_mode p<pct>``: a percentile estimator) and kept across runs in
+``--quant_calibrate_cache F.npz`` when its fingerprint matches. fp32 and
+bf16 clear a YAML's ``quantize``. ``yaml`` and ``PIL`` are imported only
+where the CLI needs them. ``--use_pallas`` keeps the JAX CLI's name: it
+switches the U-Net to the second kernel set (``conf.use_pallas_kernels``).
 """
 
 from __future__ import annotations
@@ -61,13 +70,10 @@ def parse_args(argv=None):
     p.add_argument('--seed', type=int, default=71)
     p.add_argument('--backend', type=str, default='ddp')  # accepted, unused
     p.add_argument('--precision', type=str, default='fp32',
-                   choices=['fp32', 'bf16', 'int8'])
-    p.add_argument('--quantize_min_channels', type=int, default=None)
-    p.add_argument('--quantize_smooth_alpha', type=float, default=None)
-    p.add_argument('--quant_calibrate_per_time', action='store_true')
-    p.add_argument('--quant_cal_mode', type=str, default=None)
-    p.add_argument('--quant_calibrate', action='store_true')
-    p.add_argument('--quant_calibrate_cache', type=str, default=None)
+                   choices=['fp32', 'bf16', 'int8'],
+                   help='int8: bf16 compute with W8A8 int8 U-Net convs, '
+                        'dynamic activation scales unless --quant_calibrate')
+    add_quant_args(p)
     p.add_argument('--deep_cache', type=int, default=0,
                    help='>1: DeepCache sampling, the U-Net deep half '
                         'recomputed only every Nth step (per grid parity '
@@ -94,21 +100,36 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def add_quant_args(p) -> None:
+    """The int8 knobs of ``srgd_tpu.infer`` and ``srgd_tpu.serve``, with their
+    defaults; each acts only with ``--precision int8``."""
+    p.add_argument('--quantize_min_channels', type=int, default=512,
+                   help='quantize only the U-Net blocks this wide or wider')
+    p.add_argument('--quantize_smooth_alpha', type=float, default=0.0,
+                   help='>0: SmoothQuant per-input-channel smoothing with '
+                        'this alpha')
+    p.add_argument('--quant_calibrate_per_time', action='store_true',
+                   help='with --quant_calibrate: one scale set per '
+                        'calibration noise level, the nearest one per step')
+    p.add_argument('--quant_cal_mode', type=str, default='max',
+                   help="calibration scale estimator: 'max' or 'p<pct>' "
+                        "(the |x| percentile, e.g. p99.9)")
+    p.add_argument('--quant_calibrate', action='store_true',
+                   help='record static activation scales once at start-up '
+                        'instead of per-call dynamic ones')
+    p.add_argument('--quant_calibrate_cache', type=str, default='',
+                   help='with --quant_calibrate: .npz file keeping the '
+                        'recorded scales; a start whose fingerprint matches '
+                        'loads it and skips calibration, any mismatch '
+                        'recalibrates and rewrites it')
+
+
 def check_ported(args) -> None:
     """Raise for every flag whose feature the port does not have yet."""
-    unported = [
-        (args.precision == 'int8', '--precision int8', 14),
-        (args.quantize_min_channels is not None or
-         args.quantize_smooth_alpha is not None or args.quant_calibrate or
-         args.quant_calibrate_per_time or args.quant_cal_mode is not None or
-         args.quant_calibrate_cache is not None, '--quant*', 14),
-        (bool(args.mesh), '--mesh', 15),
-    ]
-    for bad, flag, item in unported:
-        if bad:
-            raise NotImplementedError(
-                f'{flag} is not ported to srgd_tpu_torch yet (ROADMAP.md '
-                f'Queue 1 item {item})')
+    if args.mesh:
+        raise NotImplementedError(
+            '--mesh is not ported to srgd_tpu_torch yet (ROADMAP.md Queue 1 '
+            'item 15)')
 
 
 def resolve_device(name: str) -> torch.device:
@@ -223,8 +244,44 @@ def batch_sr_target_images(input_dir, output_dir, sampler: Sampler, scale=4,
                     sr_img.size[0] * sr_img.size[1] / 1e6, time.time() - t0)
 
 
-def build_sampler(args, noise_for_seed=GeneratorNoise) -> Sampler:
-    """Config + flags -> the model on ``args.device`` -> a ``Sampler``."""
+def calibrate(args, conf, wrapper, cal_draws=None) -> None:
+    """``--quant_calibrate``: load the cache when its fingerprint matches,
+    else calibrate (tile batch min(batch_size, 4), draws from a generator
+    seeded with ``--seed``, or ``cal_draws(seed, shape)`` -> (x, cond)) and
+    write it."""
+    from srgd_tpu_torch.nn import quant
+    if args.quantize_smooth_alpha:
+        logger.warning(
+            'combining --quant_calibrate with --quantize_smooth_alpha '
+            'measured worse than either alone in the JAX package (static '
+            'per-tensor scales compound calibration drift); smoothing is '
+            'meant for dynamic scales')
+    per_time, cache = args.quant_calibrate_per_time, args.quant_calibrate_cache
+    batch = min(args.batch_size, 4)
+    fp = quant.calibration_fingerprint(
+        conf, ckpt_path=args.ckpt_path, tile_size=args.tile_size,
+        per_time=per_time, seed=args.seed, class_label=args.test_label,
+        batch=batch)
+    if cache and os.path.exists(cache) and \
+            quant.load_calibration(cache, wrapper.net, fp) is not None:
+        logger.info('loaded calibration cache %s (calibrate phase skipped)',
+                    cache)
+        return
+    shape = (batch, args.tile_size, args.tile_size, 3)
+    recorded = quant.calibrate_sampler(
+        wrapper, generator=torch.Generator().manual_seed(args.seed),
+        tile_size=args.tile_size, batch=batch, class_label=args.test_label,
+        per_time=per_time,
+        draws=None if cal_draws is None else cal_draws(args.seed, shape))
+    if cache and recorded:
+        quant.save_calibration(cache, wrapper.net, fp)
+        logger.info('saved calibration cache %s', cache)
+
+
+def build_sampler(args, noise_for_seed=GeneratorNoise,
+                  cal_draws=None) -> Sampler:
+    """Config + flags -> the model on ``args.device`` (calibrated with
+    ``--quant_calibrate``) -> a ``Sampler``."""
     from srgd_tpu_torch.config import load_config
     from srgd_tpu_torch.factory import get_model
     check_ported(args)
@@ -237,8 +294,17 @@ def build_sampler(args, noise_for_seed=GeneratorNoise) -> Sampler:
     conf.num_sample_steps = args.num_sample_steps
     conf.ckpt_path = args.ckpt_path
     conf.use_dpmpp_solver = args.use_dpmpp_solver
-    conf.compute_dtype = {'fp32': 'float32', 'bf16': 'bfloat16'}[args.precision]
-    conf.quantize = 'none'   # --precision fp32/bf16 overrides a YAML's quantize
+    conf.compute_dtype = {'fp32': 'float32', 'bf16': 'bfloat16',
+                          'int8': 'bfloat16'}[args.precision]
+    if args.precision == 'int8':
+        conf.quantize = 'w8a8'
+        conf.quantize_min_channels = args.quantize_min_channels
+        if args.quantize_smooth_alpha:
+            conf.quantize_smooth_alpha = args.quantize_smooth_alpha
+        if args.quant_cal_mode != 'max':
+            conf.quantize_cal_mode = args.quant_cal_mode
+    else:
+        conf.quantize = 'none'  # --precision fp32/bf16 overrides the YAML
     conf.tile_size = args.tile_size
     conf.use_pallas_kernels = args.use_pallas
     if args.continuous_sampler:
@@ -250,6 +316,8 @@ def build_sampler(args, noise_for_seed=GeneratorNoise) -> Sampler:
         conf.deep_cache_depth = args.deep_cache_depth
         conf.deep_cache_schedule = args.deep_cache_schedule
     wrapper, _ = get_model(conf, device=device)
+    if args.precision == 'int8' and args.quant_calibrate:
+        calibrate(args, conf, wrapper, cal_draws)
     opts = dict(batch_size=args.batch_size, tile_size=args.tile_size,
                 tile_stride=conf.tile_stride or None,
                 cond_scale=args.cond_scale,

@@ -27,6 +27,15 @@ kernel set, as ``srgd_tpu/nn/layers.py`` routes it: ``Block`` norms through
 ``groupnorm_silu``, ``LinearAttention`` runs RMSNorm -> to_qkv ->
 ``linear_attention_qkv`` -> to_out -> RMSNorm, and ``Attention`` runs
 RMSNorm -> to_qkv -> ``attention`` -> to_out.
+
+``quant`` ('w8a8[:alpha[:cal_mode]]', ``nn.quant.conv``) makes the convs of
+``Block``, ``ResnetBlock``'s residual, ``LinearAttention`` and the resamplers
+``QuantConv``s, at the JAX package's sites. A quantized ``LinearAttention``
+leaves ``linattn_block`` for RMSNorm -> quantized to_qkv ->
+``linear_attention_qkv`` -> quantized to_out -> RMSNorm, the JAX module's
+submodule path; with ``use_pallas`` as well its to_out runs in float where
+the JAX module's Pallas branch (n % 256 == 0) declares a float conv.
+``Attention`` accepts ``quant`` and ignores it, as the JAX module does.
 """
 
 from __future__ import annotations
@@ -59,6 +68,13 @@ class Conv2d(nn.Conv2d):
         bias = None if self.bias is None else self.bias.to(dt)
         weight = self.weight.to(dtype=dt, memory_format=torch.channels_last)
         return F.conv2d(x.to(dt), weight, bias, padding=self.padding)
+
+
+def _conv(in_ch, out_ch, kernel_size, *, quant=None, **kw):
+    """``Conv2d``, or its W8A8 twin when ``quant`` is set (``nn.quant.conv``;
+    imported here because ``nn.quant`` builds on ``Conv2d``)."""
+    from srgd_tpu_torch.nn.quant import conv
+    return conv(in_ch, out_ch, kernel_size, quant=quant, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -154,10 +170,11 @@ class Block(nn.Module):
     output in ``dtype``, with no float32 copy of the activation."""
 
     def __init__(self, dim: int, dim_out: int, groups: int = 8,
-                 dtype=torch.float32, device=None, use_pallas: bool = False):
+                 dtype=torch.float32, device=None, use_pallas: bool = False,
+                 quant: str | None = None):
         super().__init__()
-        self.proj = Conv2d(dim, dim_out, 3, padding=1, dtype=dtype,
-                           device=device)
+        self.proj = _conv(dim, dim_out, 3, padding=1, dtype=dtype,
+                          device=device, quant=quant)
         self.norm = nn.GroupNorm(groups, dim_out, eps=1e-5, device=device)
         self.dtype = dtype
         self.use_pallas = use_pallas
@@ -190,15 +207,17 @@ class ResnetBlock(nn.Module):
 
     def __init__(self, dim: int, dim_out: int, time_emb_dim: int | None = None,
                  groups: int = 8, dtype=torch.float32, device=None,
-                 use_pallas: bool = False):
+                 use_pallas: bool = False, quant: str | None = None):
         super().__init__()
         self.mlp = (nn.Sequential(nn.SiLU(), nn.Linear(time_emb_dim, dim_out * 2,
                                                        device=device))
                     if time_emb_dim is not None else None)
-        self.block1 = Block(dim, dim_out, groups, dtype, device, use_pallas)
+        self.block1 = Block(dim, dim_out, groups, dtype, device, use_pallas,
+                            quant)
         self.block2 = Block(dim_out, dim_out, groups, dtype, device,
-                            use_pallas)
-        self.res_conv = (Conv2d(dim, dim_out, 1, dtype=dtype, device=device)
+                            use_pallas, quant)
+        self.res_conv = (_conv(dim, dim_out, 1, dtype=dtype, device=device,
+                               quant=quant)
                          if dim != dim_out else None)
 
     def forward(self, x, time_emb=None):
@@ -236,22 +255,24 @@ class LinearAttention(nn.Module):
     n % 256 gate (its kernel's block size) has no counterpart here."""
 
     def __init__(self, dim: int, heads: int = 4, dim_head: int = 32,
-                 dtype=torch.float32, device=None, use_pallas: bool = False):
+                 dtype=torch.float32, device=None, use_pallas: bool = False,
+                 quant: str | None = None):
         super().__init__()
         hidden = heads * dim_head
         self.dim_head = dim_head
         self.dtype = dtype
         self.use_pallas = use_pallas
+        self.quant = quant
         self.norm = RMSNorm(dim, dtype, device)
-        self.to_qkv = Conv2d(dim, hidden * 3, 1, bias=False, dtype=dtype,
-                             device=device)
+        self.to_qkv = _conv(dim, hidden * 3, 1, bias=False, dtype=dtype,
+                            device=device, quant=quant)
         self.to_out = nn.Sequential(
-            Conv2d(hidden, dim, 1, dtype=dtype, device=device),
+            _conv(hidden, dim, 1, dtype=dtype, device=device, quant=quant),
             RMSNorm(dim, dtype, device))
 
     def forward(self, x):
         b, c, h, w = x.shape
-        if self.use_pallas:
+        if self.use_pallas or self.quant is not None:
             return self._unfused(x)
         wq, wk, wv = self.to_qkv.weight[:, :, 0, 0].t().chunk(3, dim=1)
         out = linattn_block(
@@ -264,7 +285,12 @@ class LinearAttention(nn.Module):
         h, w = x.shape[2:]
         qkv = _as_rows(self.to_qkv(self.norm(x)))       # (b, n, 3*hidden)
         out = linear_attention_qkv(qkv, dim_head=self.dim_head)
-        return self.to_out(_from_rows(out.to(self.dtype), h, w))
+        out = _from_rows(out.to(self.dtype), h, w)
+        if self.quant is not None and self.use_pallas and (h * w) % 256 == 0:
+            # the JAX module's Pallas branch declares to_out a float nn.Conv
+            out = Conv2d.forward(self.to_out[0], out)
+            return self.to_out[1](out)
+        return self.to_out(out)
 
 
 class Attention(nn.Module):
@@ -278,7 +304,7 @@ class Attention(nn.Module):
 
     def __init__(self, dim: int, heads: int = 4, dim_head: int = 32,
                  dtype=torch.float32, device=None, use_pallas: bool = False,
-                 fused: bool = True):
+                 fused: bool = True, quant: str | None = None):
         super().__init__()
         self.heads, self.dim_head, self.dtype = heads, dim_head, dtype
         self.use_pallas, self.fused = use_pallas, fused
@@ -325,10 +351,11 @@ class PixelShuffleUpsample(nn.Module):
     each output channel."""
 
     def __init__(self, dim: int, dim_out: int, dtype=torch.float32,
-                 device=None):
+                 device=None, quant: str | None = None):
         super().__init__()
         self.net = nn.Sequential(
-            Conv2d(dim, dim_out * 4, 1, dtype=dtype, device=device),
+            _conv(dim, dim_out * 4, 1, dtype=dtype, device=device,
+                  quant=quant),
             nn.SiLU(), nn.PixelShuffle(2))
 
     def init_weights(self, gen: torch.Generator):
@@ -348,17 +375,17 @@ class NearestUpsample(nn.Sequential):
     """nearest x2 -> conv3x3 (key ``1``)."""
 
     def __init__(self, dim: int, dim_out: int, dtype=torch.float32,
-                 device=None):
+                 device=None, quant: str | None = None):
         super().__init__(nn.Upsample(scale_factor=2, mode='nearest'),
-                         Conv2d(dim, dim_out, 3, padding=1, dtype=dtype,
-                                device=device))
+                         _conv(dim, dim_out, 3, padding=1, dtype=dtype,
+                               device=device, quant=quant))
 
 
 class Downsample(nn.Sequential):
     """space-to-depth(2) -> conv1x1 (key ``1``)."""
 
     def __init__(self, dim: int, dim_out: int, dtype=torch.float32,
-                 device=None):
+                 device=None, quant: str | None = None):
         super().__init__(nn.PixelUnshuffle(2),
-                         Conv2d(dim * 4, dim_out, 1, dtype=dtype,
-                                device=device))
+                         _conv(dim * 4, dim_out, 1, dtype=dtype,
+                               device=device, quant=quant))

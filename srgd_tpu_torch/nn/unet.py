@@ -25,6 +25,7 @@ from srgd_tpu_torch.nn.layers import (
     LinearAttention, NearestUpsample, PixelShuffleUpsample, ResnetBlock,
     RMSNorm, TimeMLP,
 )
+from srgd_tpu_torch.nn.quant import conv
 
 _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 
@@ -49,7 +50,16 @@ class SRUnet(nn.Module):
     ``remat``: while gradients are recorded, every ``ResnetBlock`` and
     attention block runs under ``torch.utils.checkpoint`` and recomputes its
     activations in the backward instead of keeping them, as the JAX net
-    wraps those modules in ``nn.remat``. Parameter names do not change."""
+    wraps those modules in ``nn.remat``. Parameter names do not change.
+
+    ``quant`` ('w8a8[:alpha[:cal_mode]]', ``_quant_spec``) quantizes the
+    convs of every block, resampler and linear attention at least
+    ``quant_min_channels`` wide (int8 inference, ``nn.quant``), at the JAX
+    net's widths: a ResnetBlock at min(d_in, d_out), a stage's
+    downsampler at d_in, its upsampler at d_out; ``init_conv`` and
+    ``final_conv`` stay float. The per-time calibration stats' net times
+    are the buffer ``quant_stats_times`` (non-persistent, None until
+    calibrated)."""
 
     def __init__(self, dim: int, dim_mults: Sequence[int] = (1, 2, 4, 8),
                  channels: int = 3, resnet_block_groups: int = 8,
@@ -62,9 +72,12 @@ class SRUnet(nn.Module):
                  num_classes: int | None = None, dtype=torch.float32,
                  device=None, use_pallas: bool = False,
                  use_pallas_attention: bool = False,
-                 fused_linattn: bool = True, remat: bool = False):
+                 fused_linattn: bool = True, remat: bool = False,
+                 quant: str | None = None, quant_min_channels: int = 0):
         super().__init__()
         self.remat = remat
+        self.quant, self.quant_min_channels = quant, quant_min_channels
+        self.register_buffer('quant_stats_times', None, persistent=False)
         self.dim, self.dim_mults, self.channels = dim, tuple(dim_mults), channels
         self.num_classes, self.dtype = num_classes, dtype
         self.downsample_factor = 2 ** (len(dim_mults) - 1)
@@ -74,18 +87,21 @@ class SRUnet(nn.Module):
         time_dim = dim * 4
         kw = dict(dtype=dtype, device=device)
 
+        q = self._quant
+
         def block(d_in, d_out):
             return ResnetBlock(d_in, d_out, time_emb_dim=time_dim,
                                groups=resnet_block_groups,
-                               use_pallas=use_pallas, **kw)
+                               use_pallas=use_pallas,
+                               quant=q(min(d_in, d_out)), **kw)
 
         def attn(d, is_full):
             if is_full:
                 return Attention(d, heads=attn_heads, dim_head=attn_dim_head,
                                  use_pallas=use_pallas_attention,
-                                 fused=fused_linattn, **kw)
+                                 fused=fused_linattn, quant=q(d), **kw)
             return LinearAttention(d, heads=attn_heads, dim_head=attn_dim_head,
-                                   use_pallas=use_pallas, **kw)
+                                   use_pallas=use_pallas, quant=q(d), **kw)
 
         self.init_conv = Conv2d(channels * 2, dim, 7, padding=3, **kw)
         self.time_mlp = TimeMLP(dim, time_dim, learned_sinusoidal_cond,
@@ -98,8 +114,8 @@ class SRUnet(nn.Module):
             last = i == n_stages - 1
             self.downs.append(nn.ModuleList([
                 block(d_in, d_in), block(d_in, d_in), attn(d_in, full_attn[i]),
-                Downsample(d_in, d_out, **kw) if not last
-                else Conv2d(d_in, d_out, 3, padding=1, **kw)]))
+                Downsample(d_in, d_out, quant=q(d_in), **kw) if not last
+                else conv(d_in, d_out, 3, padding=1, quant=q(d_in), **kw)]))
 
         mid = dims[-1]
         self.mid_block1 = block(mid, mid)
@@ -114,8 +130,8 @@ class SRUnet(nn.Module):
             self.ups.append(nn.ModuleList([
                 block(d_out + d_in, d_out), block(d_out + d_in, d_out),
                 attn(d_out, is_full),
-                up(d_out, d_in, **kw) if not last
-                else Conv2d(d_out, d_in, 3, padding=1, **kw)]))
+                up(d_out, d_in, quant=q(d_out), **kw) if not last
+                else conv(d_out, d_in, 3, padding=1, quant=q(d_out), **kw)]))
 
         self.final_res_block = block(dim * 2, dim)
         out_dim = channels * (2 if learned_variance else 1)
@@ -234,6 +250,9 @@ class SRUnet(nn.Module):
         out = self.final_conv(x).float()
         return (out, cache) if return_cache else out
 
+    def _quant(self, width: int) -> str | None:
+        return self.quant if width >= self.quant_min_channels else None
+
     def _run(self, module, *args):
         """``module(*args)``, under ``checkpoint`` with ``remat`` while
         gradients are recorded."""
@@ -242,12 +261,35 @@ class SRUnet(nn.Module):
         return module(*args)
 
 
+def _quant_spec(conf) -> str | None:
+    """Config -> the conv quant spec 'w8a8[:<alpha>[:<cal_mode>]]', or None.
+    Rejects an unknown ``quantize`` (calibration is a runtime step on top of
+    'w8a8', not a config value), a smoothing alpha outside [0, 1], and a
+    percentile calibration combined with smoothing."""
+    if conf.quantize == 'none':
+        return None
+    if conf.quantize != 'w8a8':
+        raise ValueError(f"unknown quantize {conf.quantize!r}: expected "
+                         "'none' or 'w8a8'")
+    alpha = getattr(conf, 'quantize_smooth_alpha', 0.0)
+    if not 0.0 <= alpha <= 1.0:
+        raise ValueError(f'quantize_smooth_alpha must be in [0, 1], '
+                         f'got {alpha}')
+    cal_mode = getattr(conf, 'quantize_cal_mode', 'max')
+    if cal_mode != 'max':
+        if alpha > 0.0:
+            raise ValueError('quantize_cal_mode != max cannot be combined '
+                             'with quantize_smooth_alpha > 0 (the static-'
+                             'scale mechanisms compound)')
+        return f'w8a8:0:{cal_mode}'
+    if alpha > 0.0:
+        return f'w8a8:{alpha:g}'
+    return conf.quantize
+
+
 def build_unet_from_config(conf, dtype=None, device=None) -> SRUnet:
-    """``Config`` -> ``SRUnet``, as the JAX factory builds it. ``quantize``
-    is not ported and raises (ROADMAP Queue 1 item 14)."""
-    if conf.quantize != 'none':
-        raise NotImplementedError(
-            'not ported to srgd_tpu_torch yet (ROADMAP.md): quantize')
+    """``Config`` -> ``SRUnet``, as the JAX factory builds it; ``quantize:
+    w8a8`` quantizes the convs at least ``quantize_min_channels`` wide."""
     dim_mults = tuple(int(e) for e in conf.ddpm_unet_dim_mults.split(','))
     full_attn = tuple(e.strip() == 'True' for e in conf.full_attn.split(','))
     if dtype is None:
@@ -261,4 +303,5 @@ def build_unet_from_config(conf, dtype=None, device=None) -> SRUnet:
         num_classes=conf.num_classes if 'conditional' in conf.model else None,
         dtype=dtype, device=device, use_pallas=conf.use_pallas_kernels,
         use_pallas_attention=conf.flash_attn,
-        fused_linattn=conf.fused_linattn, remat=conf.remat_unet)
+        fused_linattn=conf.fused_linattn, remat=conf.remat_unet,
+        quant=_quant_spec(conf), quant_min_channels=conf.quantize_min_channels)

@@ -25,11 +25,13 @@ their tiles into the tile minibatch; a seeded request re-seeds and runs
 alone (the reference's per-image re-seeding), and so does a guided one. One
 sample runs at a time; health stays answerable while it does.
 
-Port differences: ``--device`` (default cuda; cuda without a card raises),
-``--precision`` bf16 by default and never w8a8 (a YAML's ``quantize`` is
-cleared), and the flags of unported features (``--precision int8``,
-``--quant*``, ``--mesh``) raise, naming their ROADMAP item. ``--exec_mode``
-is accepted and not read.
+Port differences: ``--device`` (default cuda; cuda without a card raises)
+and ``--mesh``, which is not ported and raises, naming its ROADMAP item.
+``--precision`` is bf16 by default, which clears a YAML's ``quantize``;
+``--precision int8`` and the ``--quant*`` flags are the batch CLI's
+(``srgd_tpu_torch.infer``): the model is quantized, and calibrated with
+``--quant_calibrate``, once at start-up. ``--exec_mode`` is accepted and not
+read.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ import time
 import numpy as np
 
 from srgd_tpu_torch.diffusion.base import GeneratorNoise
+from srgd_tpu_torch.infer import add_quant_args
 
 logger = logging.getLogger('srgd_tpu_torch.serve')
 
@@ -107,14 +110,7 @@ def parse_args(argv=None):
                    help='accepted; the port always runs a Python step loop')
     p.add_argument('--precision', type=str, default='bf16',
                    choices=['fp32', 'bf16', 'int8'])
-    # int8 and its knobs are not ported: their defaults are None, so only a
-    # flag the user sets raises (infer.check_ported)
-    p.add_argument('--quantize_min_channels', type=int, default=None)
-    p.add_argument('--quantize_smooth_alpha', type=float, default=None)
-    p.add_argument('--quant_calibrate', action='store_true')
-    p.add_argument('--quant_calibrate_per_time', action='store_true')
-    p.add_argument('--quant_cal_mode', type=str, default=None)
-    p.add_argument('--quant_calibrate_cache', type=str, default=None)
+    add_quant_args(p)
     p.add_argument('--deep_cache', type=int, default=0,
                    help='>1: DeepCache sampling, the U-Net deep half '
                         'recomputed only every Nth step')

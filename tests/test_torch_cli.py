@@ -120,9 +120,6 @@ def test_port_cli_matches_jax_cli(setup):
 
 
 @pytest.mark.parametrize('extra, item', [
-    (['--precision', 'int8'], 'Queue 1 item 14'),
-    (['--quantize_min_channels', '0'], 'Queue 1 item 14'),
-    (['--quant_calibrate'], 'Queue 1 item 14'),
     (['--mesh', '1,1'], 'Queue 1 item 15'),
 ])
 def test_unported_flags_raise(setup, extra, item):
@@ -266,3 +263,117 @@ def test_cli_flags_plumb_to_wrapper(family_setup, model):
                                    ['--device', 'cpu']))
     assert tinfer.build_sampler(args).wrapper.deep_cache_interval == 0
     assert not (root / 'never').exists()
+
+
+# --precision int8: the JAX CLI's W8A8 path, calibrated, on both CLIs
+INT8 = ['--precision', 'int8', '--quantize_min_channels', '16',
+        '--quant_calibrate']
+INT8_RUNS = {
+    'ancestral': [],
+    'ddim': ['--continuous_sampler', 'ddim'],
+}
+
+
+def _float32_nets(monkeypatch):
+    """Both packages' ``get_model`` build the net in float32."""
+    import srgd_tpu.factory as jax_factory
+    import srgd_tpu_torch.factory as port_factory
+    for module in (jax_factory, port_factory):
+        real = module.get_model
+
+        def get_model(conf, *args, _real=real, **kw):
+            conf.compute_dtype = 'float32'
+            return _real(conf, *args, **kw)
+        monkeypatch.setattr(module, 'get_model', get_model)
+
+
+@pytest.mark.parametrize('run', sorted(INT8_RUNS))
+def test_port_cli_int8_matches_jax_cli(setup, run, monkeypatch):
+    """``--precision int8 --quant_calibrate --quant_calibrate_cache F``
+    through both CLIs on the same .pth and one 16-px image, with the JAX
+    calibration draws and sampling noise replayed: a tiled 2-step run with
+    class CFG. The PNGs are equal.
+
+    The int8 CLIs compute in bf16, whose rounding points differ between XLA
+    and PyTorch on the CPU (the two bf16 CLIs alone differ by up to 226/255
+    after these 2 steps on random weights), so both build their net in
+    float32 here; everything int8 stays. A first step at log-SNR -10 divides
+    the noise estimate by alpha = 0.007, so one int8 code flip (see
+    tests/test_torch_quant.py: a float32 rounding apart at a half-integer)
+    would reach the pixels: the port runs on the codes of the JAX run, each
+    checked to be its own or one flip away (``JaxCodes``), the JAX CLI
+    running eagerly for that. A second port run loads the port's cache and
+    skips the calibrate phase, with the same PNG."""
+    from srgd_tpu.infer import main as jax_main
+    from srgd_tpu_torch.nn import quant
+    from tests.test_torch_quant import JaxCodes
+    from tests.test_torch_quant_cache import _jax_draws
+    conf, ckpt, _, root = setup
+    in_dir = root / 'in_one'
+    if not in_dir.exists():
+        in_dir.mkdir()
+        Image.fromarray(np.random.default_rng(1).integers(
+            0, 255, size=(16, 16, 3), dtype=np.uint8)).save(in_dir / 'a.png')
+    extra = [*INT8, *INT8_RUNS[run]]
+    _float32_nets(monkeypatch)
+    codes = JaxCodes(monkeypatch)
+    jax_out = root / f'jax_int8_{run}'
+    with jax.disable_jit():
+        jax_main(_argv(conf, ckpt, in_dir, jax_out, [
+            *extra, '--quant_calibrate_cache', str(root / f'jax_{run}.npz')]))
+
+    cache = root / f'port_{run}.npz'
+    want = _png(jax_out / 'a_out.png')
+    for attempt in range(2):
+        port_out = root / f'port_int8_{run}_{attempt}'
+        args = tinfer.parse_args(_argv(conf, ckpt, in_dir, port_out, [
+            *extra, '--quant_calibrate_cache', str(cache),
+            '--device', 'cpu']))
+        sampler = tinfer.build_sampler(
+            args, noise_for_seed=lambda seed, device: JaxKeyNoise(
+                jax.random.PRNGKey(seed)), cal_draws=_jax_draws)
+        assert quant.has_calibration(sampler.wrapper.net) and cache.exists()
+        if attempt == 0:
+            sampling = codes.used         # the JAX run's sampling codes
+            # the second build must load the cache
+            monkeypatch.setattr(quant, 'calibrate_sampler', _no_calibration)
+        else:
+            codes.used = sampling
+        tinfer.run(args, sampler)
+        got = _png(port_out / 'a_out.png')
+        assert got.shape == want.shape == (64, 64, 3)
+        np.testing.assert_array_equal(got, want)
+    codes.done()
+
+
+def _no_calibration(*args, **kw):
+    raise AssertionError('calibrate_sampler ran despite a valid cache')
+
+
+def test_serving_yaml_precision_sets_quantize(setup, tmp_path):
+    """The serving YAML's ``quantize: w8a8``: --precision bf16 clears it (no
+    QuantConv), --precision int8 keeps w8a8 at --quantize_min_channels. At
+    dim 8 here, so the widths run 8 to 64."""
+    from srgd_tpu_torch.nn.quant import quant_convs
+    _, _, in_dir, root = setup
+    text = open(os.path.join(
+        REPO, 'conf/conditional_continuous_linear_df8kost_dim128_tpu_serving'
+        '.yaml')).read()
+    assert 'quantize: w8a8' in text and 'unet_dim: 128' in text
+    conf = tmp_path / 'serving_dim8.yaml'
+    conf.write_text(text.replace('unet_dim: 128', 'unet_dim: 8'))
+
+    def net(extra):
+        args = tinfer.parse_args(['-c', str(conf), '-m', '', '--input_dir',
+                                  str(in_dir), '--output_dir',
+                                  str(root / 'never'), '--device', 'cpu',
+                                  *extra])
+        return tinfer.build_sampler(args).wrapper.net
+
+    assert not quant_convs(net(['--precision', 'bf16']))
+    assert not quant_convs(net(['--precision', 'fp32']))
+    quantized = net(['--precision', 'int8', '--quantize_min_channels', '32'])
+    assert quantized.dtype == torch.bfloat16
+    widths = {m.in_channels for _, m in quant_convs(quantized)}
+    assert widths and min(widths) >= 32
+    assert not quant_convs(net(['--precision', 'int8']))   # 512 > 64

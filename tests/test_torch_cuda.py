@@ -137,7 +137,8 @@ def test_each_new_wrapper_counts_one_launch(cuda_device):
     torch.cuda.synchronize()
     assert chip_smoke.read_counts() == {
         'linattn_block': 0, 'attn_block': 0, 'groupnorm_silu': 1,
-        'attention': 1, 'linear_attention': 1, 'linear_attention_qkv': 1}
+        'attention': 1, 'linear_attention': 1, 'linear_attention_qkv': 1,
+        'int8_conv': 0}
 
 
 @pytest.mark.cuda
@@ -365,7 +366,8 @@ def test_bf16_redesigned_kernels_count_one_launch_each(cuda_device):
     torch.cuda.synchronize()
     assert chip_smoke.read_counts() == {
         'linattn_block': 0, 'attn_block': 1, 'groupnorm_silu': 0,
-        'attention': 0, 'linear_attention': 0, 'linear_attention_qkv': 1}
+        'attention': 0, 'linear_attention': 0, 'linear_attention_qkv': 1,
+        'int8_conv': 0}
 
 
 @pytest.mark.cuda
@@ -453,3 +455,70 @@ def test_forward_only_kernels_raise_on_backward_on_the_card(cuda_device):
                             torch.zeros(64, device=cuda_device))
     with pytest.raises(RuntimeError, match='has no gradient'):
         out.sum().backward()
+
+
+# ---------------------------------------------------------------------------
+# int8_conv: the W8A8 convolution of QuantConv
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('out_dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('shape', [
+    # (b, h, w, cin, cout, ks): ragged M, Cout and K tails, a Cin under and
+    # over one 16-byte piece, and a net shape
+    (3, 7, 9, 40, 200, 3), (2, 5, 11, 48, 130, 1), (1, 3, 3, 3, 5, 3),
+    (8, 32, 32, 512, 1024, 3)])
+def test_int8_conv_bitwise_equal_to_plain(cuda_device, shape, out_dtype):
+    from srgd_tpu_torch.kernels import int8_conv as ic
+    g = torch.Generator(device=cuda_device).manual_seed(sum(shape))
+    case = chip_smoke.int8_case(torch, cuda_device, shape, g)
+    assert torch.equal(case['acc'](), case['acc_plain']())
+    b, h, w, cin, cout, ks = shape
+    xq = torch.randint(-127, 128, (b, h, w, cin), generator=g,
+                       device=cuda_device, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (cout, ks, ks, cin), generator=g,
+                       device=cuda_device, dtype=torch.int8)
+    scale = torch.rand(cout, generator=g, device=cuda_device) * 1e-3
+    bias = torch.randn(cout, generator=g, device=cuda_device)
+    for bb in (bias, None):
+        kw = dict(padding=ks // 2, out_dtype=out_dtype)
+        before = ic.launches
+        got = ic.int8_conv(xq, wq, scale, bb, **kw)
+        assert ic.launches == before + 1
+        assert torch.equal(got, ic.int8_conv_plain(xq, wq, scale, bb, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('alpha', [0.0, 0.5])
+def test_quantconv_kernel_route_equals_plain_route(cuda_device, alpha):
+    """One QuantConv on the same input: the card's route (the kernel) and the
+    plain route (int8_conv_plain on the card's own codes) give the same
+    bits."""
+    from srgd_tpu_torch.kernels import int8_conv as ic
+    from srgd_tpu_torch.nn.quant import QuantConv
+    torch.manual_seed(0)
+    m = QuantConv(96, 160, 3, padding=1, smooth_alpha=alpha,
+                  dtype=torch.bfloat16, device=cuda_device)
+    x = torch.randn(4, 96, 20, 12, device=cuda_device).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        before = ic.launches
+        got = m(x)
+        assert ic.launches == before + 1
+        xq, wq, scale = m.quantize(x)
+        want = ic.int8_conv_plain(xq, wq, scale.contiguous(), m.bias.float(),
+                                  padding=1, out_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.permute(0, 2, 3, 1), want)
+
+
+@pytest.mark.cuda
+def test_int8_conv_raises_on_what_it_does_not_take(cuda_device):
+    from srgd_tpu_torch.kernels import int8_conv as ic
+    xq = torch.zeros(1, 4, 4, 32, dtype=torch.int8, device=cuda_device)
+    wq = torch.zeros(8, 3, 3, 32, dtype=torch.int8, device=cuda_device)
+    scale = torch.ones(8, device=cuda_device)
+    with pytest.raises(ValueError, match='contiguous'):
+        ic.int8_conv(xq.permute(0, 2, 1, 3), wq, scale, padding=1)
+    with pytest.raises(ValueError, match='one device'):
+        ic.int8_conv(xq, wq, scale.cpu(), padding=1)

@@ -53,6 +53,10 @@ train = chip_smoke.phase_train(torch, cpu, conf=sys.argv[2], images=4,
                                resume_to=4, grad_b=2,
                                grad_lin_shapes=((40, 32),),
                                grad_attn_shapes=((16, 64),), pallas_size=16)
+int8 = chip_smoke.phase_int8(torch, cpu, conf=sys.argv[3], min_channels=32,
+                             batch_size=4, tile_size=32, cal_batch=2,
+                             cli_size=10, cli_steps=2, serve_size=8,
+                             serve_steps=2, iters=1, forward_iters=1)
 bench = chip_smoke.phase_bench(torch, cpu, lr_size=10, tile_size=32,
                                batch_size=4, forward_iters=1, **net)
 profile = chip_smoke.phase_profile(torch, cpu, tile_size=32, batch_size=2,
@@ -77,16 +81,16 @@ print(json.dumps({
     'smoke_imported': smoke_imported, 'port_imported': foreign(),
     'sampler': [type(sampler.wrapper).__name__, sampler.wrapper.sampler],
     'ok': [kernels['ok'], slice_['ok'], slice_pallas['ok'], deep_cache['ok'],
-           families['ok'], serve['ok'], train['ok'], bench['ok'],
+           families['ok'], serve['ok'], train['ok'], int8['ok'], bench['ok'],
            profile['ok']],
     'slice': slice_, 'slice_pallas': slice_pallas, 'bench': bench,
     'deep_cache': deep_cache, 'families': families, 'serve': serve,
-    'train': train,
+    'train': train, 'int8': int8,
     'kernel_cases': [[c['kernel'], c['b'], c.get('film'), c['dtype'], c['n'],
                       c['bitwise_repeat']] for c in kernels['cases']],
     'profile': profile,
     'summary': chip_smoke.summary(kernels, slice_, slice_pallas, deep_cache,
-                                  families, serve, train)}))
+                                  families, serve, train, int8)}))
 """
 
 TINY_YAML = """
@@ -95,6 +99,13 @@ unet_dim: 16
 ddpm_unet_dim_mults: '1,2'
 full_attn: 'False,True'
 learned_sinusoidal_dim: 8
+"""
+
+# the serving YAML's int8 keys at a tiny size
+TINY_INT8_YAML = TINY_YAML + """
+compute_dtype: bfloat16
+quantize: w8a8
+quantize_min_channels: 512
 """
 
 # the training YAML's keys at a tiny size: 16-px HR and 4-px LR crops
@@ -126,8 +137,10 @@ def rehearsal(tmp_path_factory):
     conf.write_text(TINY_YAML)
     train_conf = conf.with_name('tiny_train.yaml')
     train_conf.write_text(TINY_TRAIN_YAML)
+    int8_conf = conf.with_name('tiny_int8.yaml')
+    int8_conf.write_text(TINY_INT8_YAML)
     res = subprocess.run([sys.executable, '-c', _SLICE, str(conf),
-                          str(train_conf)], cwd=REPO,
+                          str(train_conf), str(int8_conf)], cwd=REPO,
                          env=_env(), capture_output=True, text=True,
                          timeout=600)
     assert res.returncode == 0, res.stderr[-3000:]
@@ -141,7 +154,7 @@ def test_port_and_chip_smoke_phases_import_no_jax(rehearsal):
     assert rep['smoke_imported'] == [], rep['smoke_imported']
     assert rep['port_imported'] == [], rep['port_imported']
     assert rep['sampler'] == ['ContinuousDiffusion', 'dpmpp']
-    assert rep['ok'] == [True] * 9
+    assert rep['ok'] == [True] * 10
     s = rep['slice']
     # downs_0_2 and ups_1_2 are linear; downs_1_2, mid_attn and ups_0_2 full
     assert s['forwards'] > 0
@@ -159,7 +172,8 @@ def test_rehearsed_second_slice_routes_to_the_second_kernel_set(rehearsal):
     # 2 stages: 11 ResnetBlocks of two Blocks; no whole-block kernel
     assert s['per_forward'] == {
         'linattn_block': 0, 'attn_block': 0, 'groupnorm_silu': 22,
-        'attention': 3, 'linear_attention': 0, 'linear_attention_qkv': 2}
+        'attention': 3, 'linear_attention': 0, 'linear_attention_qkv': 2,
+        'int8_conv': 0}
     assert set(s['launches'].values()) == {0}
     assert set(s['dpmpp_launches'].values()) == {0}
     assert 0 < s['forward_rel_diff_vs_default_net'] <= 0.05
@@ -178,10 +192,12 @@ def test_rehearsed_deep_cache_phase_splits_the_net(rehearsal):
     default, pallas = dc['nets']['default'], dc['nets']['use_pallas']
     assert default['per_cached_forward'] == {
         'linattn_block': 2, 'attn_block': 0, 'groupnorm_silu': 0,
-        'attention': 0, 'linear_attention': 0, 'linear_attention_qkv': 0}
+        'attention': 0, 'linear_attention': 0, 'linear_attention_qkv': 0,
+        'int8_conv': 0}
     assert pallas['per_cached_forward'] == {
         'linattn_block': 0, 'attn_block': 0, 'groupnorm_silu': 10,
-        'attention': 0, 'linear_attention': 0, 'linear_attention_qkv': 2}
+        'attention': 0, 'linear_attention': 0, 'linear_attention_qkv': 2,
+        'int8_conv': 0}
     for net in (default, pallas):
         assert net['fresh_cache_bitwise'] and net['fresh_cache_max_abs_diff'] == 0
         assert net['cache_shape'] == [4, 16, 32, 32]
@@ -279,10 +295,12 @@ def test_server_on_cuda_without_a_card_raises(monkeypatch):
 
 
 def test_rehearsed_summary_lists_six_kernels_with_every_key(rehearsal):
+    """The six TPU kernels' ports and ``int8_conv``, which replaces the XLA
+    int8 conv of QuantConv, each with every key of the summary line."""
     ks = rehearsal['summary']['kernels']
     assert [k['name'] for k in ks] == [
         'linattn_block', 'attn_block', 'groupnorm_silu', 'attention',
-        'linear_attention', 'linear_attention_qkv']
+        'linear_attention', 'linear_attention_qkv', 'int8_conv']
     keys = {'name', 'route', 'source', 'replaces', 'launches',
             'drive_launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms'}
@@ -292,7 +310,9 @@ def test_rehearsed_summary_lists_six_kernels_with_every_key(rehearsal):
         assert os.path.exists(os.path.join(REPO, k['source']))
         path, line = k['replaces'].split(':')
         with open(os.path.join(REPO, path)) as fp:
-            assert fp.readlines()[int(line) - 1].startswith('def fused_')
+            text = fp.readlines()[int(line) - 1]
+        assert (('lax.conv_general_dilated(' in text)
+                if k['name'] == 'int8_conv' else text.startswith('def fused_'))
         assert k['bound_ms'] > 0
         assert (k['library_ms'] is not None) == (k['name'] == 'attention')
     bench = rehearsal['bench']
@@ -305,7 +325,8 @@ def test_rehearsed_kernel_cases_cover_film_and_the_cfg_batch(rehearsal):
     dtypes; ``groupnorm_silu`` with a FiLM (block1) and without (block2)."""
     import chip_smoke
     cases = rehearsal['kernel_cases']
-    for name in chip_smoke.KERNELS:
+    # int8_conv's cases are the int8 phase's, at its net's shapes
+    for name in (k for k in chip_smoke.KERNELS if k != 'int8_conv'):
         for b in (2, 4):
             assert {c[3] for c in cases if c[0] == name and c[1] == b} == {
                 'bfloat16', 'float32'}, (name, b)
@@ -316,6 +337,34 @@ def test_rehearsed_kernel_cases_cover_film_and_the_cfg_batch(rehearsal):
     # bits; the other kernels are not asked
     assert all(c[5] is True for c in gn)
     assert all(c[5] is None for c in cases if c[0] != 'groupnorm_silu')
+
+
+def test_rehearsed_int8_phase_runs_the_quantized_path(rehearsal):
+    """The int8 phase on the CPU at quantize_min_channels 32 on the (16, 32)
+    net: the mid blocks, the 32-wide decoder stage's blocks and upsampler
+    quantized (11 convs), nothing else; int8_conv's cases cover every
+    distinct shape of that forward, bit for bit; both int8 forwards within
+    0.10 of the bf16 one; the CLI calibrates once and then loads its cache;
+    the daemon serves int8. The plain versions launch no kernel."""
+    q = rehearsal['int8']
+    assert q['ok'] and all(q['checks'].values()), q['checks']
+    assert q['per_forward'] == {
+        'linattn_block': 2, 'attn_block': 3, 'groupnorm_silu': 0,
+        'attention': 0, 'linear_attention': 0, 'linear_attention_qkv': 0,
+        'int8_conv': 11}
+    cases = q['kernel_cases']
+    assert sum(c['calls_per_forward'] for c in cases) == 11
+    assert len({(c['b'], c['n'], c['c'], c['cout'], c['ks'])
+                for c in cases}) == len(cases)
+    assert all(c['max_abs_err'] == 0 and c['bitwise'] for c in cases)
+    assert all(c['library_ms'] is None and c['bf16_conv2d_ms'] > 0
+               for c in cases)
+    for name in ('dynamic', 'calibrated'):
+        assert q['forwards'][name]['rel_err_vs_bf16'] < 0.10
+    assert [r['calibrated'] for r in q['cli']] == [1, 1]
+    assert all(r['shape'] == [1, 40, 40, 3] for r in q['cli'])
+    assert q['serve']['model_info']['precision'] == 'int8'
+    assert set(q['launches'].values()) == {0}
 
 
 def test_chip_smoke_without_a_card_fails():

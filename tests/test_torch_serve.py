@@ -13,7 +13,8 @@ The port's own contract mirrors ``tests/test_serve.py`` test for test, on a
 port server with random weights: coalescing, error propagation, submit after
 shutdown, watch grouping, quarantine and retry, the watch pass, the HTTP
 endpoints with stall detection, warmup counters and per-request guidance;
-the JAX file's int8 test becomes the check that the unported flags raise.
+the JAX file's int8 test runs on the port, and a calibrated int8 daemon
+restarts from its calibration cache.
 """
 
 import http.client
@@ -507,15 +508,11 @@ def test_coalesced_super_resolve_end_to_end(server):
 
 
 @pytest.mark.parametrize('extra, item', [
-    (['--precision', 'int8'], 'item 14'),
-    (['--quantize_min_channels', '512'], 'item 14'),
-    (['--quant_calibrate'], 'item 14'),
-    (['--quant_cal_mode', 'max'], 'item 14'),
     (['--mesh', '1,1'], 'item 15'),
 ])
 def test_server_int8_precision_raises(conf, extra, item):
-    """The JAX daemon's int8 and mesh flags are not ported: each raises and
-    names its ROADMAP item, and only when the user sets it."""
+    """The JAX daemon's mesh flag is not ported: it raises and names its
+    ROADMAP item, and only when the user sets it."""
     args = parse_args(['-c', str(conf), '-m', '', '--mode', 'http',
                        '--device', 'cpu', *SAMPLING, *extra])
     with pytest.raises(NotImplementedError, match=item):
@@ -539,6 +536,63 @@ def test_server_fast_sampler_flags(conf):
     assert srv.model_info['model'] == 'conditional_continuous'
     out = srv.super_resolve(_rand_image(2, 6, 6))
     assert out.size == (24, 24)
+
+
+INT8_YAML = """
+model: conditional_continuous
+unet_dim: 8
+ddpm_unet_dim_mults: '1,2'
+full_attn: 'False,True'
+learned_sinusoidal_cond: true
+learned_sinusoidal_dim: 8
+num_classes: 3
+image_size: 16
+"""
+
+
+def test_server_int8_precision(tmp_path):
+    """tests/test_serve.py::test_server_int8_precision on the port: the
+    daemon builds and serves with --precision int8 (quantized convs on the
+    checkpoint-shaped params) and says so in model_info."""
+    from srgd_tpu_torch.nn.quant import quant_convs
+    conf = tmp_path / 'tiny.yaml'
+    conf.write_text(INT8_YAML)
+    args = parse_args([
+        '-c', str(conf), '-m', '', '--mode', 'http', '--device', 'cpu',
+        '--num_sample_steps', '2', '--tile_size', '16', '--batch_size', '2',
+        '--lr_bucket', '8', '--test_label', '0', '--precision', 'int8',
+        '--quantize_min_channels', '8', '--quantize_smooth_alpha', '0.5'])
+    srv = Server(args)
+    convs = quant_convs(srv.sampler.wrapper.net)
+    assert convs and all(m.smooth_alpha == 0.5 for _, m in convs)
+    out = srv.super_resolve(_rand_image(0, 6, 6))
+    assert out.size == (24, 24)
+    assert srv.model_info['precision'] == 'int8'
+
+
+def test_server_int8_calibrates_once_with_cache(tmp_path, monkeypatch):
+    """--quant_calibrate calibrates at start-up and writes the cache; a
+    restarted daemon loads it instead, and both serve the same bytes."""
+    from srgd_tpu_torch.nn import quant
+    conf = tmp_path / 'tiny.yaml'
+    conf.write_text(INT8_YAML)
+    cache = tmp_path / 'cal.npz'
+    argv = ['-c', str(conf), '-m', '', '--mode', 'http', '--device', 'cpu',
+            '--num_sample_steps', '2', '--tile_size', '16', '--batch_size',
+            '2', '--lr_bucket', '8', '--precision', 'int8',
+            '--quantize_min_channels', '16', '--quant_calibrate',
+            '--quant_calibrate_cache', str(cache)]
+    outs = []
+    for _ in range(2):
+        srv = Server(parse_args(argv))
+        assert cache.exists() and quant.has_calibration(srv.sampler.wrapper.net)
+        outs.append(np.asarray(srv.super_resolve(_rand_image(1, 6, 6),
+                                                 seed=3)))
+
+        def boom(*a, **kw):
+            raise AssertionError('calibrated again despite a valid cache')
+        monkeypatch.setattr(quant, 'calibrate_sampler', boom)
+    np.testing.assert_array_equal(outs[0], outs[1])
 
 
 def _serve_http(server):

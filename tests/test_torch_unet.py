@@ -162,8 +162,15 @@ def test_build_from_config_maps_the_kernel_flags():
                ddpm_unet_dim_mults='1,2', full_attn='False,True'),
         device='meta')
     assert not any(getattr(m, 'use_pallas', False) for m in default.modules())
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        build_unet_from_config(Config(quantize='w8a8'), device='meta')
+    # quantize: w8a8 builds the int8 net (tests/test_torch_quant.py holds
+    # it to JAX); an unknown value raises
+    from srgd_tpu_torch.nn.quant import quant_convs
+    assert quant_convs(build_unet_from_config(
+        Config(model='conditional_continuous', unet_dim=8,
+               ddpm_unet_dim_mults='1,2', full_attn='False,True',
+               quantize='w8a8'), device='meta'))
+    with pytest.raises(ValueError, match='unknown quantize'):
+        build_unet_from_config(Config(quantize='w8a8cal'), device='meta')
     # remat_unet wraps the blocks in checkpoint: the same parameters
     remat = build_unet_from_config(
         Config(model='conditional_continuous', unet_dim=8,
