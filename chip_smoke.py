@@ -83,29 +83,38 @@ Phases, each printed as one JSON line:
    memory and the data path (native or PIL).
 10. int8: W8A8 inference on the serving YAML at full width (``quantize:
    w8a8`` at 512 channels, bf16, random weights from a seed). ``int8_conv``
-   (the s8 x s8 -> s32 implicit-GEMM kernel that replaces QuantConv's XLA
-   conv) at every distinct shape of one b = 8 forward, bit for bit against
-   its plain version (bf16 output and int32 accumulators), with its ms, the
-   plain version's, the bound and a bf16 ``F.conv2d`` of the same shape (a
-   different function, for scale); one forward of the bf16 net and of the
-   int8 net with dynamic and with calibrated scales, each int8 one within
-   0.10 of the bf16 one relative to its largest value, launching every
-   QuantConv once, the linear attentions but the quantized one through
-   ``linattn_block``, its core through ``linear_attention_qkv`` and the
-   full attentions through ``attn_block``; ``srgd_tpu_torch.infer
-   --precision int8 --quant_calibrate --quant_calibrate_cache`` twice on a
-   128-px input (the second run loads the cache); and one ``--precision
-   int8`` request through ``srgd_tpu_torch.serve``.
+   (the s8 x s8 -> s32 implicit GEMM that replaces QuantConv's XLA conv) at
+   every distinct shape of one b = 8 forward, bit for bit against its plain
+   version (bf16 output and int32 accumulators) by both of its kernels (the
+   Hopper ``wgmma`` kernel, which every net shape takes, and the first
+   ``mma.sync`` one), with the ms of each, the plain version's, the bound
+   and a bf16 ``F.conv2d`` of the same shape (a different function, for
+   scale), and at ragged shapes (``RAGGED_INT8_SHAPES``); ``act_amax`` and
+   ``quantize_act`` at every distinct activation of the forward, bit for
+   bit (whole-tensor and per-channel amax; dynamic, calibrated and smoothed
+   divisors), with their ms, the plain versions', the bound, the amax's
+   ``torch.linalg.vector_norm`` and QuantConv's PyTorch-op chain that they
+   replace; one forward of the bf16 net and of the int8 net with dynamic
+   and with calibrated scales, each int8 one within 0.10 of the bf16 one
+   relative to its largest value, launching every QuantConv's conv (all on
+   the Hopper kernel) and quantize once and, dynamic only, its amax, the
+   linear attentions but the quantized one through ``linattn_block``, its
+   core through ``linear_attention_qkv`` and the full attentions through
+   ``attn_block``; ``srgd_tpu_torch.infer --precision int8
+   --quant_calibrate --quant_calibrate_cache`` twice on a 128-px input (the
+   second run loads the cache); and one ``--precision int8`` request through
+   ``srgd_tpu_torch.serve``.
 11. bench: one U-Net forward (b = 8 tiles of 256 px) and one even and one odd
    step of a 512-px LR input (2304 canvas), for the default net and for the
    ``use_pallas`` net.
 12. profile, only with ``--profile``: ``torch.profiler`` over three forwards of
-   each net, device time per kernel name, per kernel of the port (summed
-   over all its launches and shapes, and its device kernels per forward)
-   and per group of PyTorch's own kernels, and the device time of single
-   calls of ``linattn_block``, ``attn_block``, ``linear_attention_qkv``,
-   ``groupnorm_silu`` (one device kernel a call) and ``attention`` beside
-   SDPA's.
+   each net (default, ``use_pallas`` and the int8 net of phase 10, which
+   must launch none of PyTorch's abs or round kernels), device time
+   per kernel name, per kernel of the port (summed over all its launches and
+   shapes, and its device kernels per forward) and per group of PyTorch's
+   own kernels, and the device time of single calls of ``linattn_block``,
+   ``attn_block``, ``linear_attention_qkv``, ``groupnorm_silu`` (one device
+   kernel a call) and ``attention`` beside SDPA's.
 
 Every launch count is set to 0 just before a path is driven and read just
 after. Then the kernel summary and, last, the device line. Exits non-zero,
@@ -170,9 +179,14 @@ KERNELS = {
     'linear_attention_qkv': ('srgd_tpu/kernels/linear_attention.py:197',
                              'linear_attention.cu', 'linear_attention',
                              'launches_qkv'),
-    # not a Pallas kernel: the XLA int8 conv of QuantConv (phase int8)
+    # not Pallas kernels: the XLA int8 conv of QuantConv and its activation
+    # amax and quantize (phase int8)
     'int8_conv': ('srgd_tpu/nn/quant.py:165', 'int8_conv.cu', 'int8_conv',
                   'launches'),
+    'act_amax': ('srgd_tpu/nn/quant.py:153', 'quant_act.cu', 'quant_act',
+                 'launches_amax'),
+    'quantize_act': ('srgd_tpu/nn/quant.py:160', 'quant_act.cu', 'quant_act',
+                     'launches'),
 }
 # the phases whose launches count as the main paths' in the summary
 MAIN_PATHS = ('slice', 'slice_pallas', 'deep_cache', 'families', 'serve',
@@ -195,6 +209,8 @@ def _counter(name):
 def reset_counts() -> None:
     for name in KERNELS:
         setattr(*_counter(name), 0)
+    from srgd_tpu_torch.kernels import int8_conv
+    int8_conv.launches_wgmma = int8_conv.launches_mma = 0
 
 
 def read_counts() -> dict:
@@ -512,9 +528,19 @@ def _per_forward(mods) -> dict:
         'linear_attention': 0,
         'linear_attention_qkv': len(unfused),
         # every QuantConv once (the nets here have no quant + use_pallas
-        # linear attention, whose to_out may run in float)
+        # linear attention, whose to_out may run in float), and its
+        # activation's amax where no statistic is recorded
         'int8_conv': sum(isinstance(m, QuantConv) for m in mods),
+        'act_amax': sum(isinstance(m, QuantConv) and _dynamic(m)
+                        for m in mods),
+        'quantize_act': sum(isinstance(m, QuantConv) for m in mods),
     }
+
+
+def _dynamic(m) -> bool:
+    """Whether QuantConv ``m`` takes its activation's amax each call."""
+    stat = m.act_amax_ch if m.smooth_alpha > 0 else m.act_scale
+    return m.calibrating or stat is None
 
 
 def _cached_per_forward(net, depth: int) -> dict:
@@ -1213,9 +1239,28 @@ def _conv_shapes(torch, net, run):
     return list(calls.items())
 
 
+# (b, h, w, cin, cout, ks) of int8_conv beside the net's shapes: ragged M,
+# Cout and K tails, a Cin under one 16-byte piece, image widths that do not
+# divide a 128-pixel tile; both kernels are held to the plain version here
+RAGGED_INT8_SHAPES = ((3, 7, 9, 40, 200, 3), (2, 5, 11, 48, 130, 1),
+                      (1, 3, 3, 3, 5, 3), (2, 6, 10, 32, 72, 3))
+# ((b, h, w, cin, cout, ks), calls) of the 25 QuantConvs of one int8 forward
+# of the serving YAML at 512 channels, b = 8 tiles of 256 px (phase int8
+# reads them off the net; kernel_ab.py times them)
+INT8_NET_SHAPES = (
+    ((8, 32, 32, 512, 512, 3), 4), ((8, 32, 32, 512, 1024, 3), 1),
+    ((8, 32, 32, 1024, 1024, 3), 6), ((8, 32, 32, 1536, 1024, 3), 2),
+    ((8, 32, 32, 1536, 1024, 1), 2), ((8, 32, 32, 1024, 2048, 1), 1),
+    ((8, 64, 64, 768, 512, 3), 2), ((8, 64, 64, 512, 512, 3), 2),
+    ((8, 64, 64, 768, 512, 1), 2), ((8, 64, 64, 512, 384, 1), 1),
+    ((8, 64, 64, 128, 512, 1), 1), ((8, 64, 64, 512, 1024, 1), 1))
+
+
 def int8_case(torch, device, shape, gen):
     """int8_conv at one shape (bf16 output, as in the net) against its plain
-    version: (the case, the make-the-calls dict)."""
+    version: the calls by route ('kern' the one the shape takes, 'mma' the
+    first, ``mma.sync`` kernel), the int32 accumulators, a bf16 conv of the
+    same shape, and the bytes and operations of the function."""
     import torch.nn.functional as F
 
     from srgd_tpu_torch.kernels import int8_conv as ic
@@ -1227,18 +1272,22 @@ def int8_case(torch, device, shape, gen):
     scale = torch.rand(cout, generator=gen, device=device) * 1e-4
     bias = torch.randn(cout, generator=gen, device=device)
     kw = dict(padding=ks // 2, out_dtype=torch.bfloat16)
+    acc = dict(padding=ks // 2, out_dtype=torch.int32)
     # a bf16 convolution of the same shape: another function, for scale
     xb = xq.permute(0, 3, 1, 2).to(torch.bfloat16)
     wb = wq.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
         memory_format=torch.channels_last)
     m, k = b * h * w, ks * ks * cin
     return {
+        # (a checkout from before the Hopper kernel has one route)
+        'route': (ic.route(cin, ks, xq.data_ptr(), wq.data_ptr())
+                  if hasattr(ic, 'route') else 'mma'),
         'kern': lambda: ic.int8_conv(xq, wq, scale, bias, **kw),
+        'mma': lambda: ic.int8_conv(xq, wq, scale, bias, kernel='mma', **kw),
         'plain': lambda: ic.int8_conv_plain(xq, wq, scale, bias, **kw),
-        'acc': lambda: ic.int8_conv(xq, wq, padding=ks // 2,
-                                    out_dtype=torch.int32),
-        'acc_plain': lambda: ic.int8_conv_plain(xq, wq, padding=ks // 2,
-                                                out_dtype=torch.int32),
+        'acc': lambda: ic.int8_conv(xq, wq, **acc),
+        'acc_mma': lambda: ic.int8_conv(xq, wq, kernel='mma', **acc),
+        'acc_plain': lambda: ic.int8_conv_plain(xq, wq, **acc),
         'bf16_conv': lambda: F.conv2d(xb, wb, bias.to(torch.bfloat16),
                                       padding=ks // 2),
         # xq and wq read once, scale and bias, the bf16 output written once
@@ -1247,24 +1296,76 @@ def int8_case(torch, device, shape, gen):
     }
 
 
+def quant_case(torch, device, shape, gen):
+    """``act_amax`` and ``quantize_act`` on one bf16 activation (b, h, w, c)
+    NHWC, a few channels 30x the others (SmoothQuant's outliers), against
+    their plain versions: the divisors of a dynamic scale, of a calibrated
+    one half as large (so that codes clip) and of a smoothed per-channel one
+    (s_c * s_x with alpha 0.5); the PyTorch-op chain the kernels replace;
+    ``torch.linalg.vector_norm`` at ord inf, the one library call that
+    computes the amax; and the bytes of each function."""
+    from srgd_tpu_torch.kernels import quant_act as qa
+    b, h, w, c = shape
+    wide = torch.where(torch.arange(c, device=device) % 97 == 5, 30.0, 1.0)
+    x = (torch.randn((b, h, w, c), generator=gen, device=device)
+         * wide).to(torch.bfloat16)
+    s_dyn = qa.act_amax_plain(x) / 127.0 + 1e-12
+    a_c = qa.act_amax_plain(x, per_channel=True)
+    w_c = torch.rand(c, generator=gen, device=device) + 0.1
+    s_c = a_c ** 0.5 * w_c ** -0.5
+    div_ch = s_c * (torch.amax(a_c / s_c) / 127.0 + 1e-12)
+    xc = x.permute(0, 3, 1, 2)      # the net's NCHW view, channels_last
+
+    def chain():
+        # QuantConv's dynamic quantize before the kernels, op for op
+        xf = xc.float()
+        s = torch.amax(torch.abs(xf)) / 127.0 + 1e-12
+        q = torch.clamp(torch.round(xf / s), -127.0, 127.0).to(torch.int8)
+        return q.contiguous(memory_format=torch.channels_last)
+
+    n = x.numel()
+    return {
+        'amax': (lambda: qa.act_amax(x), lambda: qa.act_amax_plain(x)),
+        'amax_per_channel': (lambda: qa.act_amax(x, per_channel=True),
+                             lambda: qa.act_amax_plain(x, per_channel=True)),
+        'library_amax': lambda: torch.linalg.vector_norm(
+            x, float('inf'), dtype=torch.float32),
+        'quantize': {name: (lambda d=d: qa.quantize_act(x, d),
+                            lambda d=d: qa.quantize_act_plain(x, d))
+                     for name, d in (('dynamic', s_dyn),
+                                     ('calibrated', s_dyn * 0.5),
+                                     ('smoothed', div_ch))},
+        'dynamic_pair': lambda: qa.quantize_act(
+            x, qa.act_amax(x) / 127.0 + 1e-12),
+        'chain': chain,
+        # bf16 read once; the amax's one float written, the codes' int8
+        'bytes_amax': 2 * n + 4, 'bytes_quantize': 3 * n + 4,
+    }
+
+
 def phase_int8(torch, device, *, conf=SERVING_YAML, min_channels=512,
                batch_size=8, tile_size=256, cal_batch=4, cli_size=128,
                cli_steps=2, serve_size=64, serve_steps=4, iters=5,
-               forward_iters=3, seed=0):
+               forward_iters=3, ragged_shapes=RAGGED_INT8_SHAPES, seed=0):
     """W8A8 int8 inference on the serving YAML at full width (bf16, random
     weights from ``seed``, ``quantize: w8a8`` at ``min_channels``):
 
-    - ``int8_conv`` at every distinct shape of one int8 forward (b =
-      ``batch_size`` tiles) against its plain version, bit for bit (the bf16
-      output and the int32 accumulators), with the ms of both (L2 flushed),
-      the bound, and the ms of a bf16 ``F.conv2d`` of the same shape (a
-      different function, for scale); the kernel's ms per forward;
     - one forward each of the bf16 net, the int8 net with dynamic scales and
       with calibrated ones (``calibrate_sampler``, ``cal_batch`` tiles):
-      their ms, their launches (every QuantConv, the linear attentions but
-      the quantized one, the full attentions, the quantized one's core), and
-      max|y_int8 - y_bf16| / max|y_bf16| < 0.10, the bar of
+      their ms, their launches (every QuantConv's conv, all on the Hopper
+      kernel, and quantize, its amax where the scale is dynamic; the linear
+      attentions but the quantized one, the full attentions, the quantized
+      one's core), and max|y_int8 - y_bf16| / max|y_bf16| < 0.10, the bar of
       tests/test_quant.py:77;
+    - ``int8_conv`` at every distinct shape of that forward against its
+      plain version, bit for bit (the bf16 output and the int32
+      accumulators) by both kernels, with the ms of each and of the plain
+      version (L2 flushed), the bound, and the ms of a bf16 ``F.conv2d`` of
+      the same shape (a different function, for scale); the same bits at
+      ``ragged_shapes``; the kernel's ms per forward;
+    - ``act_amax`` and ``quantize_act`` at every distinct activation of that
+      forward against their plain versions, bit for bit (``quant_case``),
+      with their ms, bounds, and the PyTorch-op chain they replace;
     - ``srgd_tpu_torch.infer`` with ``--precision int8 --quant_calibrate
       --quant_calibrate_cache`` twice on a ``cli_size`` input: finite
       outputs in [0, 1] of 4x the size, the first run calibrating and
@@ -1280,6 +1381,7 @@ def phase_int8(torch, device, *, conf=SERVING_YAML, min_channels=512,
     from PIL import Image
 
     from srgd_tpu_torch import infer
+    from srgd_tpu_torch.kernels import int8_conv as ic
     from srgd_tpu_torch.nn import quant
     from srgd_tpu_torch.serve import Server, parse_args
     on_card = device.type == 'cuda'
@@ -1311,8 +1413,6 @@ def phase_int8(torch, device, *, conf=SERVING_YAML, min_channels=512,
     y_bf16 = forward(bf16.net)()
     ref_max = y_bf16.float().abs().max().item()
     shapes = _conv_shapes(torch, int8.net, forward(int8.net))
-    expected, per_forward = _expected_launches(int8.net, on_card)
-    res['per_forward'] = per_forward
     nets = {}
     for name in ('dynamic', 'calibrated'):
         if name == 'calibrated':
@@ -1323,6 +1423,10 @@ def phase_int8(torch, device, *, conf=SERVING_YAML, min_channels=512,
             if on_card:
                 torch.cuda.synchronize()
             res['calibrate_seconds'] = time.perf_counter() - t0
+        # dynamic: every QuantConv takes its amax; calibrated: none does
+        expected, per_forward = _expected_launches(int8.net, on_card)
+        res['per_forward' if name == 'dynamic'
+            else 'per_forward_calibrated'] = per_forward
         reset_counts()
         y = forward(int8.net)()
         if on_card:
@@ -1334,7 +1438,12 @@ def phase_int8(torch, device, *, conf=SERVING_YAML, min_channels=512,
         checks[f'{name}_finite'] = bool(torch.isfinite(y).all())
         for k in KERNELS:
             checks[f'{name}_{k}_launches'] = launches[k] == expected[k]
+        # every conv of the net takes the Hopper kernel
+        checks[f'{name}_int8_conv_took_wgmma'] = (
+            ic.launches_wgmma == expected['int8_conv']
+            and ic.launches_mma == 0)
         nets[name] = {'rel_err_vs_bf16': rel, 'launches': launches,
+                      'launches_wgmma': ic.launches_wgmma,
                       'ms': time_ms(torch, forward(int8.net), device,
                                     forward_iters)}
     nets['bf16'] = {'ms': time_ms(torch, forward(bf16.net), device,
@@ -1342,48 +1451,119 @@ def phase_int8(torch, device, *, conf=SERVING_YAML, min_channels=512,
     res['forwards'] = nets
     del bf16
 
-    # -- the kernel at the forward's shapes ------------------------------------
+    # -- the kernels at the forward's shapes ---------------------------------
     gen = torch.Generator(device=device).manual_seed(seed + 7)
     flush = (torch.empty(64 << 20, dtype=torch.uint8, device=device)
              if on_card else None)
-    cases = []
-    for shape, calls in shapes:
+
+    def timed(fn):
+        return time_ms(torch, fn, device, iters, flush)
+
+    def bound(nbytes, ops=0):
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        by_ops = ops / PEAK_FLOPS['int8'] * 1e3
+        return {'bound_ms': max(by_bytes, by_ops),
+                'bound_by': 'bytes' if by_bytes >= by_ops else 'operations'}
+
+    cases, ragged = [], []
+    for shape, calls in [*shapes, *((s, 0) for s in ragged_shapes)]:
         case = int8_case(torch, device, shape, gen)
-        got, want = case['kern'](), case['plain']()
-        acc_equal = torch.equal(case['acc'](), case['acc_plain']())
+        got, want, got_mma = case['kern'](), case['plain'](), case['mma']()
+        acc_plain = case['acc_plain']()
+        acc_equal = (torch.equal(case['acc'](), acc_plain)
+                     and torch.equal(case['acc_mma'](), acc_plain))
         if on_card:
             torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
-        by_bytes = case['bytes'] / HBM_BYTES_PER_S * 1e3
-        by_ops = case['ops'] / PEAK_FLOPS['int8'] * 1e3
         b, h, w, cin, cout, ks = shape
-        cases.append({
-            'kernel': 'int8_conv', 'b': b, 'n': h * w, 'c': cin,
-            'cout': cout, 'ks': ks, 'calls_per_forward': calls,
-            'dtype': 'bfloat16', 'max_abs_err': err,
+        row = {
+            'kernel': 'int8_conv', 'b': b, 'n': h * w, 'h': h, 'w': w,
+            'c': cin, 'cout': cout, 'ks': ks, 'calls_per_forward': calls,
+            'route': case['route'], 'dtype': 'bfloat16', 'max_abs_err': err,
             'rms_err': (got.float() - want.float()).square().mean().sqrt()
             .item(),
             'bitwise': bool(torch.equal(got, want)),
-            'accumulators_bitwise': acc_equal,
-            'ms': time_ms(torch, case['kern'], device, iters, flush),
-            'plain_ms': time_ms(torch, case['plain'], device, iters, flush),
-            'library_ms': None,
-            'bf16_conv2d_ms': time_ms(torch, case['bf16_conv'], device,
-                                      iters, flush),
-            'bytes': case['bytes'], 'ops': case['ops'],
-            'bound_ms': max(by_bytes, by_ops),
-            'bound_by': 'bytes' if by_bytes >= by_ops else 'operations'})
-        del got, want, case
-    checks['kernel_bitwise'] = all(c['bitwise'] and c['accumulators_bitwise']
-                                   for c in cases)
+            'mma_bitwise': bool(torch.equal(got_mma, want)),
+            'accumulators_bitwise': acc_equal}
+        if calls:
+            row.update({
+                'ms': timed(case['kern']), 'mma_ms': timed(case['mma']),
+                'plain_ms': timed(case['plain']), 'library_ms': None,
+                'bf16_conv2d_ms': timed(case['bf16_conv']),
+                'bytes': case['bytes'], 'ops': case['ops'],
+                **bound(case['bytes'], case['ops'])})
+            cases.append(row)
+        else:
+            ragged.append(row)
+        del got, want, got_mma, acc_plain, case
+    checks['kernel_bitwise'] = all(
+        c['bitwise'] and c['mma_bitwise'] and c['accumulators_bitwise']
+        for c in cases + ragged)
+    # the net's shapes take the Hopper kernel; its first version keeps the
+    # widths that are no multiple of 16
+    checks['net_shapes_route_wgmma'] = all(c['route'] == 'wgmma'
+                                           for c in cases)
+    checks['ragged_cin_routes_mma'] = all(
+        c['route'] == ('wgmma' if c['c'] % 16 == 0 else 'mma')
+        for c in ragged)
     res['kernel_cases'] = cases
+    res['ragged_int8_cases'] = ragged
     res['int8_conv_per_forward'] = {
-        'launches': sum(c['calls_per_forward'] for c in cases),
-        'ms': sum(c['ms'] * c['calls_per_forward'] for c in cases),
-        'bound_ms': sum(c['bound_ms'] * c['calls_per_forward']
-                        for c in cases),
-        'bf16_conv2d_ms': sum(c['bf16_conv2d_ms'] * c['calls_per_forward']
-                              for c in cases)}
+        key: sum(c[key] * c['calls_per_forward'] for c in cases)
+        for key in ('ms', 'mma_ms', 'bound_ms', 'bf16_conv2d_ms')}
+    res['int8_conv_per_forward']['launches'] = sum(
+        c['calls_per_forward'] for c in cases)
+
+    # -- the activation quantize at the forward's activations -----------------
+    acts = {}
+    for (b, h, w, cin, _, _), calls in shapes:
+        acts[(b, h, w, cin)] = acts.get((b, h, w, cin), 0) + calls
+    quant_rows = []
+    for shape, calls in acts.items():
+        q = quant_case(torch, device, shape, gen)
+        exact = {}
+        for name, (kern, plain) in (('amax', q['amax']),
+                                    ('amax_per_channel',
+                                     q['amax_per_channel']),
+                                    *q['quantize'].items()):
+            exact[name] = bool(torch.equal(kern(), plain()))
+        if on_card:
+            torch.cuda.synchronize()
+        b, h, w, c = shape
+        common = {'b': b, 'n': h * w, 'c': c, 'calls_per_forward': calls,
+                  'dtype': 'bfloat16', 'bitwise': exact,
+                  'max_abs_err': 0.0 if all(exact.values()) else math.inf,
+                  'rms_err': 0.0 if all(exact.values()) else math.inf}
+        quant_rows.append({
+            'kernel': 'act_amax', **common,
+            'ms': timed(q['amax'][0]), 'plain_ms': timed(q['amax'][1]),
+            'per_channel_ms': timed(q['amax_per_channel'][0]),
+            'library_ms': timed(q['library_amax']),
+            'bytes': q['bytes_amax'], **bound(q['bytes_amax'])})
+        quant_rows.append({
+            'kernel': 'quantize_act', **common,
+            'ms': timed(q['quantize']['dynamic'][0]),
+            'plain_ms': timed(q['quantize']['dynamic'][1]),
+            'library_ms': None,
+            # the dynamic pair (amax, then quantize) against QuantConv's
+            # chain of PyTorch ops it replaces
+            'dynamic_pair_ms': timed(q['dynamic_pair']),
+            'op_chain_ms': timed(q['chain']),
+            'bytes': q['bytes_quantize'], **bound(q['bytes_quantize'])})
+        del q
+    checks['quant_bitwise'] = all(all(r['bitwise'].values())
+                                  for r in quant_rows)
+    res['kernel_cases'] += quant_rows
+    res['quantize_per_forward'] = {
+        key: sum(r[key] * r['calls_per_forward'] for r in quant_rows
+                 if r['kernel'] == 'quantize_act')
+        for key in ('ms', 'dynamic_pair_ms', 'op_chain_ms', 'bound_ms')}
+    res['quantize_per_forward']['amax_ms'] = sum(
+        r['ms'] * r['calls_per_forward'] for r in quant_rows
+        if r['kernel'] == 'act_amax')
+    res['quantize_per_forward']['amax_bound_ms'] = sum(
+        r['bound_ms'] * r['calls_per_forward'] for r in quant_rows
+        if r['kernel'] == 'act_amax')
     del int8
 
     # -- the CLI, twice: calibrate and write the cache, then load it ----------
@@ -1902,7 +2082,13 @@ DEVICE_KERNELS = {
     'flash_mma': 'attention', 'kv_partials': 'linear_attention_qkv',
     'out_rows': 'linear_attention_qkv',
     'kv_partials_mma': 'linear_attention_qkv',
-    'out_rows_mma': 'linear_attention_qkv', 'int8_conv_kernel': 'int8_conv'}
+    'out_rows_mma': 'linear_attention_qkv', 'int8_conv_kernel': 'int8_conv',
+    'int8_conv_wgmma': 'int8_conv', 'act_amax_partial': 'act_amax',
+    'act_amax_final': 'act_amax', 'quantize_act_kernel': 'quantize_act'}
+# PyTorch's device kernels that mark QuantConv's activation quantize in
+# PyTorch ops (abs before the amax, round before the clip; the clip's clamp
+# kernel is RMSNorm's too): an int8 forward on the card must launch none
+QUANTIZE_CHAIN = ('abs_kernel', 'round_kernel')
 # the float32 device kernels: a bfloat16 net must spend no time in them
 F32_ONLY_KERNELS = ('phase_a', 'phase_b', 'flash', 'qkv_proj', 'attend',
                     'kv_partials', 'out_rows')
@@ -2002,7 +2188,7 @@ def phase_profile(torch, device, *, tile_size=256, batch_size=8, seed=0,
                   forwards=3, top=24, lin_shapes=LINATTN_SHAPES,
                   attn_shapes=ATTN_SHAPES, gn_shapes=GN_SHAPES,
                   linear_shapes=LINEAR_SHAPES, flash_shapes=FLASH_SHAPES,
-                  **net_kw):
+                  int8_conf=SERVING_YAML, int8_min_channels=512, **net_kw):
     """``torch.profiler`` over ``forwards`` U-Net forwards of the default and
     of the ``use_pallas`` net (b = 8 tiles of 256 px, bf16): self device time
     per kernel name, in ms per forward, largest first, with the sum over all
@@ -2017,7 +2203,11 @@ def phase_profile(torch, device, *, tile_size=256, batch_size=8, seed=0,
     ``F.scaled_dot_product_attention``, of ``attn_block``,
     ``linear_attention_qkv`` and ``groupnorm_silu`` by device kernel, and
     their ``standalone_device_kernels_per_call``, which must be 1 for
-    ``groupnorm_silu``. Not part of the default run: ``python3 chip_smoke.py
+    ``groupnorm_silu``. The same breakdown for the int8 net of the serving
+    YAML (``quantize: w8a8`` at ``int8_min_channels``, dynamic scales),
+    which must launch none of PyTorch's abs or round kernels
+    (``QUANTIZE_CHAIN``): its activations are quantized by the port's
+    kernels. Not part of the default run: ``python3 chip_smoke.py
     --profile`` adds it."""
     import torch.nn.functional as F
 
@@ -2033,15 +2223,24 @@ def phase_profile(torch, device, *, tile_size=256, batch_size=8, seed=0,
     t = torch.zeros(batch_size, device=device)
     res = {'phase': 'profile', 'forwards': forwards, 'nets': {}}
     ok = True
+    here = os.path.dirname(os.path.abspath(__file__))
     for name, flags, merge_owner in (
             ('default', {}, 'linattn_block'),
-            ('use_pallas', PALLAS_FLAGS, 'linear_attention_qkv')):
-        net = build_flagship(torch, device, seed=seed, **flags, **net_kw).net
+            ('use_pallas', PALLAS_FLAGS, 'linear_attention_qkv'),
+            ('int8', None, 'linattn_block')):
+        if flags is None:
+            net = _int8_wrapper(torch, device, os.path.join(here, int8_conf),
+                                'w8a8', int8_min_channels, seed).net
+            args = _forward_inputs(torch, device, batch_size, tile_size, seed)
+        else:
+            net = build_flagship(torch, device, seed=seed, **flags,
+                                 **net_kw).net
+            args = (x, t, {'cond': x})
 
         def run(n):
             with torch.inference_mode():
                 for _ in range(n):
-                    net(x, t, cond=x)
+                    net(args[0], args[1], **args[2])
             if on_card:
                 torch.cuda.synchronize()
 
@@ -2065,6 +2264,11 @@ def phase_profile(torch, device, *, tile_size=256, batch_size=8, seed=0,
             'top': [{'ms': ms, 'calls': calls, 'name': key[:200]}
                     for ms, calls, key in rows[:top]]}
         ok = ok and sum(r[0] for r in rows) > 0 and f32_ms == 0
+        if flags is None:
+            chain = [key[:200] for _, _, key in rows
+                     if any(s in key for s in QUANTIZE_CHAIN)]
+            res['nets'][name]['quantize_chain_kernels'] = chain
+            ok = ok and (not on_card or not chain)
         del net
 
     def device_rows(fn, calls=5):

@@ -6,6 +6,14 @@ against variants of its own plan, on one NVIDIA GPU, in turns.
         [--variant NAME:ATTR=VALUE[,ATTR=VALUE...]] [--iters 10] \\
         [--out chiprun_out/kernel_ab.json]
 
+``--kernel int8_conv`` times the conv at the 12 shapes of the int8 forward
+(``chip_smoke.INT8_NET_SHAPES``), each checkout's ``int8_conv`` as its
+wrapper routes it (the parent's one kernel, this checkout's Hopper kernel)
+and bit for bit against the plain version; ``--kernel quantize_act`` the
+activation quantize of a dynamic scale at the forward's activations: the
+amax and quantize kernels where the checkout has them, else QuantConv's
+PyTorch-op chain that they replace.
+
 ``--other`` is the root of another checkout of the repository (for example
 a ``git archive`` of the parent commit unpacked under ``build/``, which is
 gitignored). A variant is this checkout with attributes of the kernel's
@@ -36,6 +44,8 @@ SHAPES = {
     'attn_block': ('attn_block', 'attn_shapes'),
     'attention': ('attention', 'flash_shapes'),
     'linear_attention_qkv': ('linear_attention', 'linear_shapes'),
+    'int8_conv': ('int8_conv', None),
+    'quantize_act': ('quant_act', None),
 }
 
 _RUN = r"""
@@ -45,23 +55,62 @@ smoke_path, kernel, module, arg, sets, iters = sys.argv[1:7]
 spec = importlib.util.spec_from_file_location('chip_smoke_ab', smoke_path)
 smoke = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(smoke)
-mod = importlib.import_module('srgd_tpu_torch.kernels.' + module)
+try:
+    mod = importlib.import_module('srgd_tpu_torch.kernels.' + module)
+except ImportError:      # a checkout from before the module
+    mod = None
 for attr, value in json.loads(sets).items():
     setattr(mod, attr, value)
 device = torch.device('cuda', 0)
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-shapes = dict.fromkeys(('lin_shapes', 'attn_shapes', 'gn_shapes',
-                        'linear_shapes', 'flash_shapes',
-                        'ragged_lin_shapes', 'ragged_flash_shapes',
-                        'ragged_attn_shapes', 'ragged_linear_shapes'), ())
-shapes[arg] = getattr(smoke, {'gn_shapes': 'GN_SHAPES',
-                              'lin_shapes': 'LINATTN_SHAPES',
-                              'attn_shapes': 'ATTN_SHAPES',
-                              'flash_shapes': 'FLASH_SHAPES',
-                              'linear_shapes': 'LINEAR_SHAPES'}[arg])
-res = smoke.phase_kernels(torch, device, iters=int(iters), **shapes)
-cases = [c for c in res['cases'] if c['kernel'] == kernel]
+gen = torch.Generator(device=device).manual_seed(7)
+flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+def timed(fn):
+    return smoke.time_ms(torch, fn, device, int(iters), flush)
+cases = []
+if kernel == 'int8_conv':
+    for shape, calls in smoke.INT8_NET_SHAPES:
+        case = smoke.int8_case(torch, device, shape, gen)
+        ok = torch.equal(case['kern'](), case['plain']())
+        b, h, w, cin, cout, ks = shape
+        cases.append({'kernel': kernel, 'label': f'{b * h * w}px {cin}->{cout} k{ks}',
+                      'calls_per_forward': calls, 'route': case['route'],
+                      'ok': ok, 'ms': timed(case['kern'])})
+        del case
+elif kernel == 'quantize_act':
+    acts = {}
+    for (b, h, w, cin, _, _), calls in smoke.INT8_NET_SHAPES:
+        acts[(b, h, w, cin)] = acts.get((b, h, w, cin), 0) + calls
+    for (b, h, w, c), calls in acts.items():
+        x = torch.randn((b, h, w, c), generator=gen, device=device).to(torch.bfloat16)
+        xc = x.permute(0, 3, 1, 2)
+        def chain():
+            xf = xc.float()
+            s = torch.amax(torch.abs(xf)) / 127.0 + 1e-12
+            q = torch.clamp(torch.round(xf / s), -127.0, 127.0).to(torch.int8)
+            return q.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+        if mod is None:
+            run, what = chain, 'op_chain'
+        else:
+            def run():
+                return mod.quantize_act(x, mod.act_amax(x) / 127.0 + 1e-12)
+            what = 'act_amax+quantize_act'
+        cases.append({'kernel': kernel, 'label': f'{b * h * w}px c{c}',
+                      'calls_per_forward': calls, 'what': what,
+                      'ok': torch.equal(run(), chain()), 'ms': timed(run)})
+else:
+    shapes = dict.fromkeys(('lin_shapes', 'attn_shapes', 'gn_shapes',
+                            'linear_shapes', 'flash_shapes',
+                            'ragged_lin_shapes', 'ragged_flash_shapes',
+                            'ragged_attn_shapes', 'ragged_linear_shapes'), ())
+    shapes[arg] = getattr(smoke, {'gn_shapes': 'GN_SHAPES',
+                                  'lin_shapes': 'LINATTN_SHAPES',
+                                  'attn_shapes': 'ATTN_SHAPES',
+                                  'flash_shapes': 'FLASH_SHAPES',
+                                  'linear_shapes': 'LINEAR_SHAPES'}[arg])
+    res = smoke.phase_kernels(torch, device, iters=int(iters), **shapes)
+    cases = [c for c in res['cases'] if c['kernel'] == kernel]
 print(json.dumps({'ok': all(c['ok'] for c in cases), 'cases': cases}))
 """
 
@@ -97,7 +146,8 @@ def main() -> int:
         env = dict(os.environ, PYTHONPATH=root)
         proc = subprocess.run(
             [sys.executable, '-c', _RUN, os.path.join(REPO, 'chip_smoke.py'),
-             args.kernel, module, arg, json.dumps(sets), str(args.iters)],
+             args.kernel, module, str(arg), json.dumps(sets),
+             str(args.iters)],
             cwd=root, env=env, capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stderr[-4000:], file=sys.stderr)
@@ -106,7 +156,8 @@ def main() -> int:
         ok = ok and res['ok']
         row = {'turn': turn, 'run': label, 'root': root, 'sets': sets,
                'ok': res['ok'],
-               'ms': {f"{c['n']}x{c['c']} b{c['b']} {c['dtype']}"
+               'ms': {c.get('label') or
+                      f"{c['n']}x{c['c']} b{c['b']} {c['dtype']}"
                       f"{' film' if c.get('film') else ''}": c['ms']
                       for c in res['cases']},
                'cases': res['cases']}

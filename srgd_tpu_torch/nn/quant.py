@@ -15,6 +15,18 @@ time, in float32 whatever the net's dtype, in the JAX order:
   the net's dtype: ``kernels.int8_conv`` (the CUDA kernel on the card, its
   plain version on the CPU).
 
+On the card the activation's amax and codes are the kernels of
+``kernels.quant_act``, which read the activation once in its own dtype and
+channels_last memory; on the CPU their plain versions, today's PyTorch
+expressions. The weights' codes and scales (``wq``, ``s_w`` and, with
+smoothing on recorded a_c, ``s_c``) are computed once and cached: the key is
+the weight Parameter, its ``_version`` (in-place writes, ``load_state_dict``)
+and its count of ``.data`` accesses (``weight.data.copy_`` bypasses the
+version counter), and the recorded a_c tensor and its version where it
+feeds them. ``select``, a new statistic and ``calibrating`` all miss the
+cache; smoothing on dynamic a_c recomputes the weights every call, as the
+JAX package does.
+
 SmoothQuant (``smooth_alpha`` > 0): per-input-channel factors
 s_c = a_c^alpha * w_c^(alpha - 1), where a_c and w_c are the activation's and
 the weight's per-input-channel amax (1 where either is 0), fold into the
@@ -45,9 +57,11 @@ from typing import Iterable
 
 import numpy as np
 import torch
+from torch import nn
 
 from srgd_tpu_torch.checkpoint import STATS_TIMES, flax_path
 from srgd_tpu_torch.kernels.int8_conv import int8_conv
+from srgd_tpu_torch.kernels.quant_act import act_amax, quantize_act
 from srgd_tpu_torch.nn.layers import Conv2d
 
 logger = logging.getLogger('srgd_tpu_torch')
@@ -80,6 +94,25 @@ def _cal_amax(xf, mode: str):
     raise ValueError(f"unknown cal_mode {mode!r}: expected 'max' or 'p<pct>'")
 
 
+class WatchedParameter(nn.Parameter):
+    """A Parameter that counts the accesses to its ``.data`` (``data_reads``):
+    a write through ``weight.data`` (``copy_``, assignment) leaves
+    ``_version`` as it was, so QuantConv's weight cache keys on this count
+    too. Every other operation is a Parameter's."""
+
+    data_reads = 0
+
+    @property
+    def data(self):
+        self.data_reads += 1
+        return torch.Tensor.data.__get__(self)
+
+    @data.setter
+    def data(self, value):
+        self.data_reads += 1
+        torch.Tensor.data.__set__(self, value)
+
+
 class QuantConv(Conv2d):
     """``Conv2d`` executed as s8 x s8 -> s32 (``kernels.int8_conv``); the
     output is in the compute ``dtype``. Stride 1 and "same" padding, as every
@@ -90,61 +123,95 @@ class QuantConv(Conv2d):
     def __init__(self, *args, smooth_alpha: float = 0.0, cal_mode: str = 'max',
                  **kw):
         super().__init__(*args, **kw)
+        self.weight = WatchedParameter(self.weight.detach(),
+                                       self.weight.requires_grad)
         self.smooth_alpha, self.cal_mode = smooth_alpha, cal_mode
         self.calibrating = False
+        self._weight_cache = None   # (weight, a_c, key, derived tensors)
         for name in _STATS + tuple(f'{s}_t' for s in _STATS):
             self.register_buffer(name, None, persistent=False)
+
+    def _weights(self, a_c=None):
+        """(wq (Cout, kh, kw, Cin) int8, s_w, s_c or None) of the weight,
+        smoothed by the recorded a_c when given, from the cache when the same
+        weight and a_c tensors hold the same contents. The cache holds both
+        tensors, so their identities cannot pass to new ones."""
+        w = self.weight
+        key = (w._version, getattr(w, 'data_reads', 0), self.smooth_alpha,
+               None if a_c is None else a_c._version)
+        c = self._weight_cache
+        if c is None or c[0] is not w or c[1] is not a_c or c[2] != key:
+            c = self._weight_cache = (w, a_c, key, self._quantize_weights(a_c))
+        return c[3]
+
+    def _quantize_weights(self, a_c):
+        with torch.no_grad():
+            wf = self.weight.float()
+            s_c = None
+            if a_c is not None:
+                w_c = torch.amax(torch.abs(wf), dim=(0, 2, 3))
+                ok = (a_c > 0.0) & (w_c > 0.0)
+                alpha = self.smooth_alpha
+                s_c = torch.where(ok, (a_c ** alpha) * (w_c ** (alpha - 1.0)),
+                                  torch.ones_like(a_c))
+                wf = wf * s_c[None, :, None, None]
+            s_w = torch.amax(torch.abs(wf), dim=(1, 2, 3)) / 127.0 + 1e-12
+            wq = torch.round(wf / s_w[:, None, None, None]).to(torch.int8)
+            return wq.permute(0, 2, 3, 1).contiguous(), s_w, s_c
 
     def quantize(self, x):
         """(xq NHWC int8, wq (Cout, kh, kw, Cin) int8, scale = s_x * s_w
         float32 (Cout,)) of input ``x`` (NCHW)."""
-        xf = x.float()
-        wf = self.weight.float()
+        on_card = x.device.type == 'cuda'
+        # the kernels read x in its own dtype and channels_last memory (a
+        # no-op on the net's activations); the CPU route casts first, as
+        # the JAX package does
+        xa = (x.contiguous(memory_format=torch.channels_last) if on_card
+              else x.float())
+        xn = xa.permute(0, 2, 3, 1)
         if self.smooth_alpha > 0.0:
             if self.cal_mode != 'max':
                 raise ValueError('quantize_cal_mode != max cannot be '
                                  'combined with quantize_smooth_alpha > 0')
-            if self.calibrating:
-                dyn = torch.amax(torch.abs(xf), dim=(0, 2, 3))
-                self.act_amax_ch = (dyn if self.act_amax_ch is None
-                                    else torch.maximum(self.act_amax_ch, dyn))
-                a_c = dyn
-            elif self.act_amax_ch is not None:
+            static = not self.calibrating and self.act_amax_ch is not None
+            if static:
                 a_c = self.act_amax_ch
+                wq, s_w, s_c = self._weights(a_c)
             else:
-                a_c = torch.amax(torch.abs(xf), dim=(0, 2, 3))
-            w_c = torch.amax(torch.abs(wf), dim=(0, 2, 3))
-            ok = (a_c > 0.0) & (w_c > 0.0)
-            alpha = self.smooth_alpha
-            s_c = torch.where(ok, (a_c ** alpha) * (w_c ** (alpha - 1.0)),
-                              torch.ones_like(a_c))
-            wf = wf * s_c[None, :, None, None]
+                a_c = act_amax(xn, per_channel=True)
+                if self.calibrating:
+                    self.act_amax_ch = (
+                        a_c if self.act_amax_ch is None
+                        else torch.maximum(self.act_amax_ch, a_c))
+                # the weights depend on this call's a_c
+                wq, s_w, s_c = self._quantize_weights(a_c)
             s_x = torch.amax(a_c / s_c) / 127.0 + 1e-12
             x_div = (s_c * s_x)[None, :, None, None]
         else:
             if self.calibrating:
-                dyn = _cal_amax(xf, self.cal_mode) / 127.0 + 1e-12
+                dyn = _cal_amax(xa.float(), self.cal_mode) / 127.0 + 1e-12
                 self.act_scale = (dyn if self.act_scale is None
                                   else torch.maximum(self.act_scale, dyn))
                 s_x = dyn
             elif self.act_scale is not None:
                 s_x = self.act_scale
             else:
-                s_x = torch.amax(torch.abs(xf)) / 127.0 + 1e-12
+                s_x = act_amax(xn) / 127.0 + 1e-12
             x_div = s_x
-        s_w = torch.amax(torch.abs(wf), dim=(1, 2, 3)) / 127.0 + 1e-12
-        wq = torch.round(wf / s_w[:, None, None, None]).to(torch.int8)
-        xq = self.quantize_activation(xf, x_div)
-        xq = xq.contiguous(memory_format=torch.channels_last)
-        return (xq.permute(0, 2, 3, 1), wq.permute(0, 2, 3, 1).contiguous(),
-                s_x * s_w)
+            wq, s_w, _ = self._weights()
+        xq = self.quantize_activation(xa, x_div)
+        return (xq.contiguous(memory_format=torch.channels_last)
+                .permute(0, 2, 3, 1), wq, s_x * s_w)
 
     @staticmethod
     def quantize_activation(xf, x_div):
-        """clamp(round(xf / x_div), -127, 127) as int8, rounding half to
-        even as ``jnp.round`` does."""
-        return torch.clamp(torch.round(xf / x_div), -127.0, 127.0).to(
-            torch.int8)
+        """clamp(round(xf / x_div), -127, 127) as int8 (NCHW, channels_last
+        memory on the card), rounding half to even as ``jnp.round`` does:
+        ``kernels.quant_act.quantize_act`` on the NHWC view, ``x_div`` a
+        scalar or (1, C, 1, 1)."""
+        return quantize_act(xf.permute(0, 2, 3, 1),
+                            x_div.reshape(-1) if x_div.dim() else x_div
+                            ).permute(0, 3, 1, 2)
 
     def forward(self, x):
         xq, wq, scale = self.quantize(x)
@@ -159,6 +226,7 @@ class QuantConv(Conv2d):
             stacked = getattr(self, f'{name}_t')
             if stacked is not None:
                 setattr(self, name, stacked[idx])
+        self._weight_cache = None
 
 
 def conv(in_ch: int, out_ch: int, kernel_size: int, *, padding: int = 0,

@@ -7,6 +7,8 @@ tests/conftest.py, which sets up JAX):
 
 chip_smoke.py makes the same comparison at the flagship shapes."""
 
+import copy
+
 import pytest
 import torch
 
@@ -138,7 +140,7 @@ def test_each_new_wrapper_counts_one_launch(cuda_device):
     assert chip_smoke.read_counts() == {
         'linattn_block': 0, 'attn_block': 0, 'groupnorm_silu': 1,
         'attention': 1, 'linear_attention': 1, 'linear_attention_qkv': 1,
-        'int8_conv': 0}
+        'int8_conv': 0, 'act_amax': 0, 'quantize_act': 0}
 
 
 @pytest.mark.cuda
@@ -367,7 +369,7 @@ def test_bf16_redesigned_kernels_count_one_launch_each(cuda_device):
     assert chip_smoke.read_counts() == {
         'linattn_block': 0, 'attn_block': 1, 'groupnorm_silu': 0,
         'attention': 0, 'linear_attention': 0, 'linear_attention_qkv': 1,
-        'int8_conv': 0}
+        'int8_conv': 0, 'act_amax': 0, 'quantize_act': 0}
 
 
 @pytest.mark.cuda
@@ -522,3 +524,144 @@ def test_int8_conv_raises_on_what_it_does_not_take(cuda_device):
         ic.int8_conv(xq.permute(0, 2, 1, 3), wq, scale, padding=1)
     with pytest.raises(ValueError, match='one device'):
         ic.int8_conv(xq, wq, scale.cpu(), padding=1)
+
+
+# ---------------------------------------------------------------------------
+# int8_conv's Hopper kernel and the activation quantize kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape, calls', chip_smoke.INT8_NET_SHAPES)
+def test_int8_conv_wgmma_bitwise_at_the_net_shapes(cuda_device, shape, calls):
+    """The 12 shapes of an int8 forward take the Hopper kernel, whose output
+    and accumulators equal the plain version's bit for bit."""
+    from srgd_tpu_torch.kernels import int8_conv as ic
+    g = torch.Generator(device=cuda_device).manual_seed(sum(shape))
+    case = chip_smoke.int8_case(torch, cuda_device, shape, g)
+    assert case['route'] == 'wgmma' and calls > 0
+    before = ic.launches_wgmma
+    assert torch.equal(case['kern'](), case['plain']())
+    assert torch.equal(case['acc'](), case['acc_plain']())
+    assert ic.launches_wgmma == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', chip_smoke.RAGGED_INT8_SHAPES)
+def test_int8_conv_both_kernels_bitwise_at_ragged_shapes(cuda_device, shape):
+    """The first (mma.sync) kernel at ragged widths, and whichever kernel
+    the route picks, equal the plain version bit for bit; a width no
+    multiple of 16 takes the first kernel."""
+    from srgd_tpu_torch.kernels import int8_conv as ic
+    g = torch.Generator(device=cuda_device).manual_seed(sum(shape))
+    case = chip_smoke.int8_case(torch, cuda_device, shape, g)
+    assert case['route'] == ('wgmma' if shape[3] % 16 == 0 else 'mma')
+    before = ic.launches_mma
+    want = case['plain']()
+    assert torch.equal(case['mma'](), want)
+    assert torch.equal(case['acc_mma'](), case['acc_plain']())
+    assert ic.launches_mma == before + 2
+    assert torch.equal(case['kern'](), want)
+    assert torch.equal(case['acc'](), case['acc_plain']())
+
+
+@pytest.mark.cuda
+def test_int8_conv_wgmma_raises_on_what_it_does_not_take(cuda_device):
+    from srgd_tpu_torch.kernels import int8_conv as ic
+    xq = torch.zeros(1, 4, 4, 24, dtype=torch.int8, device=cuda_device)
+    wq = torch.zeros(8, 3, 3, 24, dtype=torch.int8, device=cuda_device)
+    scale = torch.ones(8, device=cuda_device)
+    with pytest.raises(ValueError, match='wgmma kernel takes'):
+        ic.int8_conv(xq, wq, scale, padding=1, kernel='wgmma')
+
+
+def _activation_shapes():
+    acts = {}
+    for (b, h, w, cin, _, _), calls in chip_smoke.INT8_NET_SHAPES:
+        acts[(b, h, w, cin)] = acts.get((b, h, w, cin), 0) + calls
+    return list(acts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', _activation_shapes()
+                         + [(2, 5, 7, 24), (1, 3, 3, 12), (3, 9, 11, 40)])
+def test_quant_act_kernels_bitwise(cuda_device, shape):
+    """act_amax (whole tensor and per channel) and quantize_act (dynamic,
+    calibrated and smoothed divisors) equal their plain versions bit for
+    bit, at the net's activations and at widths no multiple of 8."""
+    from srgd_tpu_torch.kernels import quant_act as qa
+    g = torch.Generator(device=cuda_device).manual_seed(sum(shape))
+    q = chip_smoke.quant_case(torch, cuda_device, shape, g)
+    before = (qa.launches_amax, qa.launches)
+    for name, (kern, plain) in (('amax', q['amax']),
+                                ('amax_per_channel', q['amax_per_channel']),
+                                *q['quantize'].items()):
+        got, want = kern(), plain()
+        assert got.dtype == want.dtype and torch.equal(got, want), name
+    assert (qa.launches_amax, qa.launches) == (before[0] + 2, before[1] + 3)
+    # float32 activations too
+    x = torch.randn(shape, generator=g, device=cuda_device) * 3
+    div = qa.act_amax_plain(x) / 127.0 + 1e-12
+    assert torch.equal(qa.act_amax(x), qa.act_amax_plain(x))
+    assert torch.equal(qa.quantize_act(x, div), qa.quantize_act_plain(x, div))
+
+
+@pytest.mark.cuda
+def test_quant_act_raises_on_what_it_does_not_take(cuda_device):
+    from srgd_tpu_torch.kernels import quant_act as qa
+    x = torch.randn(2, 4, 4, 16, device=cuda_device).to(torch.bfloat16)
+    d = torch.ones((), device=cuda_device)
+    with pytest.raises(ValueError, match='contiguous'):
+        qa.quantize_act(x.permute(0, 2, 1, 3), d)
+    with pytest.raises(ValueError, match='contiguous'):
+        qa.act_amax(x.transpose(1, 2))
+    with pytest.raises(ValueError, match='divisor must be float32'):
+        qa.quantize_act(x, torch.ones(3, device=cuda_device))
+    with pytest.raises(ValueError, match='activation\'s device'):
+        qa.quantize_act(x, d.cpu())
+
+
+def _plain_route(monkeypatch):
+    """QuantConv's kernels swapped for their plain versions, on the card."""
+    from srgd_tpu_torch.kernels import int8_conv as ic
+    from srgd_tpu_torch.kernels import quant_act as qa
+    from srgd_tpu_torch.nn import quant as tq
+    monkeypatch.setattr(tq, 'act_amax', qa.act_amax_plain)
+    monkeypatch.setattr(tq, 'quantize_act', qa.quantize_act_plain)
+    monkeypatch.setattr(tq, 'int8_conv', ic.int8_conv_plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('alpha', [0.0, 0.5])
+@pytest.mark.parametrize('calibrated', [False, True])
+def test_quantconv_card_route_equals_its_cpu_route(cuda_device, alpha,
+                                                   calibrated, monkeypatch):
+    """One QuantConv on the card, through the three kernels, equals the same
+    module on the card through their plain versions bit for bit, and the
+    same module on the CPU within a code flip: the card computes the scale
+    arithmetic (``/ 127``, SmoothQuant's powers) with PyTorch's CUDA ops,
+    which may round a scale one ulp away from the CPU's."""
+    from srgd_tpu_torch.kernels import int8_conv as ic
+    from srgd_tpu_torch.kernels import quant_act as qa
+    from srgd_tpu_torch.nn.quant import QuantConv, calibrate_quant
+    torch.manual_seed(0)
+    m = QuantConv(128, 256, 3, padding=1, smooth_alpha=alpha,
+                  dtype=torch.bfloat16, device=cuda_device)
+    x = (torch.randn(4, 128, 16, 16, device=cuda_device) * 2).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    if calibrated:
+        calibrate_quant(m, [((x * 1.5,), {})])
+    before = (ic.launches_wgmma, qa.launches, qa.launches_amax)
+    with torch.no_grad():
+        got = m(x)
+    assert (ic.launches_wgmma, qa.launches, qa.launches_amax) == (
+        before[0] + 1, before[1] + 1, before[2] + (not calibrated))
+    with monkeypatch.context() as mp:
+        _plain_route(mp)
+        with torch.no_grad():
+            want = m(x)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    cpu = copy.deepcopy(m).cpu()
+    with torch.no_grad():
+        on_cpu = cpu(x.cpu())
+    diff = (got.float().cpu() - on_cpu.float()).abs().max().item()
+    assert diff <= 2e-2 * on_cpu.float().abs().max().item()

@@ -64,6 +64,7 @@ profile = chip_smoke.phase_profile(torch, cpu, tile_size=32, batch_size=2,
                                    attn_shapes=((70, 64),),
                                    gn_shapes=((70, 32),),
                                    linear_shapes=(70,), flash_shapes=(70,),
+                                   int8_conf=sys.argv[3], int8_min_channels=32,
                                    **net)
 def foreign():
     return sorted(k for k in sys.modules if k.split('.')[0] in
@@ -173,7 +174,7 @@ def test_rehearsed_second_slice_routes_to_the_second_kernel_set(rehearsal):
     assert s['per_forward'] == {
         'linattn_block': 0, 'attn_block': 0, 'groupnorm_silu': 22,
         'attention': 3, 'linear_attention': 0, 'linear_attention_qkv': 2,
-        'int8_conv': 0}
+        'int8_conv': 0, 'act_amax': 0, 'quantize_act': 0}
     assert set(s['launches'].values()) == {0}
     assert set(s['dpmpp_launches'].values()) == {0}
     assert 0 < s['forward_rel_diff_vs_default_net'] <= 0.05
@@ -193,11 +194,11 @@ def test_rehearsed_deep_cache_phase_splits_the_net(rehearsal):
     assert default['per_cached_forward'] == {
         'linattn_block': 2, 'attn_block': 0, 'groupnorm_silu': 0,
         'attention': 0, 'linear_attention': 0, 'linear_attention_qkv': 0,
-        'int8_conv': 0}
+        'int8_conv': 0, 'act_amax': 0, 'quantize_act': 0}
     assert pallas['per_cached_forward'] == {
         'linattn_block': 0, 'attn_block': 0, 'groupnorm_silu': 10,
         'attention': 0, 'linear_attention': 0, 'linear_attention_qkv': 2,
-        'int8_conv': 0}
+        'int8_conv': 0, 'act_amax': 0, 'quantize_act': 0}
     for net in (default, pallas):
         assert net['fresh_cache_bitwise'] and net['fresh_cache_max_abs_diff'] == 0
         assert net['cache_shape'] == [4, 16, 32, 32]
@@ -295,15 +296,23 @@ def test_server_on_cuda_without_a_card_raises(monkeypatch):
 
 
 def test_rehearsed_summary_lists_six_kernels_with_every_key(rehearsal):
-    """The six TPU kernels' ports and ``int8_conv``, which replaces the XLA
-    int8 conv of QuantConv, each with every key of the summary line."""
+    """The six TPU kernels' ports, ``int8_conv``, which replaces the XLA
+    int8 conv of QuantConv, and ``act_amax`` and ``quantize_act``, which
+    replace its activation quantize, each with every key of the summary
+    line."""
     ks = rehearsal['summary']['kernels']
     assert [k['name'] for k in ks] == [
         'linattn_block', 'attn_block', 'groupnorm_silu', 'attention',
-        'linear_attention', 'linear_attention_qkv', 'int8_conv']
+        'linear_attention', 'linear_attention_qkv', 'int8_conv', 'act_amax',
+        'quantize_act']
     keys = {'name', 'route', 'source', 'replaces', 'launches',
             'drive_launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms'}
+    # the JAX line each replaces: a Pallas kernel's def, or QuantConv's
+    # XLA conv, amax and quantize
+    xla = {'int8_conv': 'lax.conv_general_dilated(',
+           'act_amax': 'jnp.max(jnp.abs(xf))',
+           'quantize_act': 'jnp.clip(jnp.round(xf / x_div)'}
     for k in ks:
         assert keys <= set(k), k
         assert k['route'] == 'cuda' and k['bound_by'] in ('bytes', 'operations')
@@ -311,10 +320,13 @@ def test_rehearsed_summary_lists_six_kernels_with_every_key(rehearsal):
         path, line = k['replaces'].split(':')
         with open(os.path.join(REPO, path)) as fp:
             text = fp.readlines()[int(line) - 1]
-        assert (('lax.conv_general_dilated(' in text)
-                if k['name'] == 'int8_conv' else text.startswith('def fused_'))
+        assert ((xla[k['name']] in text) if k['name'] in xla
+                else text.startswith('def fused_'))
         assert k['bound_ms'] > 0
-        assert (k['library_ms'] is not None) == (k['name'] == 'attention')
+        # one PyTorch call computes attention (SDPA) and the amax
+        # (vector_norm at ord inf)
+        assert (k['library_ms'] is not None) == (
+            k['name'] in ('attention', 'act_amax'))
     bench = rehearsal['bench']
     for key in ('forward_ms', 'ms_per_step'):
         assert bench[key] > 0 and bench['pallas_' + key] > 0
@@ -325,8 +337,10 @@ def test_rehearsed_kernel_cases_cover_film_and_the_cfg_batch(rehearsal):
     dtypes; ``groupnorm_silu`` with a FiLM (block1) and without (block2)."""
     import chip_smoke
     cases = rehearsal['kernel_cases']
-    # int8_conv's cases are the int8 phase's, at its net's shapes
-    for name in (k for k in chip_smoke.KERNELS if k != 'int8_conv'):
+    # int8_conv's and the quantize kernels' cases are the int8 phase's, at
+    # its net's shapes
+    for name in (k for k in chip_smoke.KERNELS
+                 if k not in ('int8_conv', 'act_amax', 'quantize_act')):
         for b in (2, 4):
             assert {c[3] for c in cases if c[0] == name and c[1] == b} == {
                 'bfloat16', 'float32'}, (name, b)
@@ -351,14 +365,30 @@ def test_rehearsed_int8_phase_runs_the_quantized_path(rehearsal):
     assert q['per_forward'] == {
         'linattn_block': 2, 'attn_block': 3, 'groupnorm_silu': 0,
         'attention': 0, 'linear_attention': 0, 'linear_attention_qkv': 0,
-        'int8_conv': 11}
-    cases = q['kernel_cases']
+        'int8_conv': 11, 'act_amax': 11, 'quantize_act': 11}
+    # calibrated: no QuantConv takes its amax any more
+    assert q['per_forward_calibrated'] == {**q['per_forward'], 'act_amax': 0}
+    cases = [c for c in q['kernel_cases'] if c['kernel'] == 'int8_conv']
     assert sum(c['calls_per_forward'] for c in cases) == 11
     assert len({(c['b'], c['n'], c['c'], c['cout'], c['ks'])
                 for c in cases}) == len(cases)
-    assert all(c['max_abs_err'] == 0 and c['bitwise'] for c in cases)
+    assert all(c['max_abs_err'] == 0 and c['bitwise'] and c['mma_bitwise']
+               and c['accumulators_bitwise'] for c in cases)
     assert all(c['library_ms'] is None and c['bf16_conv2d_ms'] > 0
-               for c in cases)
+               and c['mma_ms'] > 0 and c['route'] == 'wgmma' for c in cases)
+    ragged = q['ragged_int8_cases']
+    assert [c['route'] for c in ragged] == ['mma', 'wgmma', 'mma', 'wgmma']
+    assert all(c['bitwise'] and c['mma_bitwise'] for c in ragged)
+    # the quantize kernels at each distinct activation of the forward, bit
+    # for bit, dynamic, calibrated and smoothed
+    for name in ('act_amax', 'quantize_act'):
+        rows = [c for c in q['kernel_cases'] if c['kernel'] == name]
+        assert sum(c['calls_per_forward'] for c in rows) == 11
+        assert all(all(c['bitwise'].values()) and c['max_abs_err'] == 0
+                   for c in rows)
+        assert set(rows[0]['bitwise']) == {
+            'amax', 'amax_per_channel', 'dynamic', 'calibrated', 'smoothed'}
+    assert q['quantize_per_forward']['op_chain_ms'] > 0
     for name in ('dynamic', 'calibrated'):
         assert q['forwards'][name]['rel_err_vs_bf16'] < 0.10
     assert [r['calibrated'] for r in q['cli']] == [1, 1]
@@ -538,6 +568,9 @@ def test_rehearsed_kernel_cases_hold_the_ragged_shapes(rehearsal):
 
 def test_rehearsed_profile_sums_each_kernel_and_times_single_calls(rehearsal):
     prof = rehearsal['profile']
+    assert set(prof['nets']) == {'default', 'use_pallas', 'int8'}
+    # the card's check that the int8 net quantizes in the port's kernels
+    assert isinstance(prof['nets']['int8']['quantize_chain_kernels'], list)
     for net in prof['nets'].values():
         assert net['kernel_ms_per_forward'] > 0
         # the CPU runs the plain versions: no device kernel of the port
@@ -591,7 +624,9 @@ def test_kernel_ab_variants_and_shapes():
     assert kernel_ab.parse_variant('plain:') == ('plain', {})
     params = inspect.signature(chip_smoke.phase_kernels).parameters
     for kernel, (module, arg) in kernel_ab.SHAPES.items():
-        assert kernel in chip_smoke.KERNELS and arg in params
+        # the int8 path's kernels run at the int8 forward's shapes instead
+        assert kernel in chip_smoke.KERNELS and (
+            arg in params if arg else kernel in ('int8_conv', 'quantize_act'))
         assert os.path.exists(os.path.join(
             REPO, 'srgd_tpu_torch', 'kernels', module + '.py'))
 
