@@ -104,10 +104,26 @@ Phases, each printed as one JSON line:
    --quant_calibrate --quant_calibrate_cache`` twice on a 128-px input (the
    second run loads the cache); and one ``--precision int8`` request through
    ``srgd_tpu_torch.serve``.
-11. bench: one U-Net forward (b = 8 tiles of 256 px) and one even and one odd
+11. mesh: the device mesh (``srgd_tpu_torch.parallel``, ``--mesh``) with
+   one rank per visible card through NCCL (in this process when there is
+   one card): phase 4's sampler through the mesh, bit-equal to the plain
+   sampler at every world, 6 / 3 launches every forward, and the ms per
+   step with and without the mesh path; one train step of the training
+   YAML at ``mesh_shape`` (N, 1) against one device (its loss at rtol 1e-4,
+   Adam's first moment, a tenth of the step's gradient, within the bf16
+   tolerance in L2, the parameters within Adam's 2 lr), then a resume of
+   each to step 2 (at world 1 both losses at rtol 1e-4; whether the bits
+   matched is printed; at world N the same again in float32, for what the
+   bf16 rounding of the split batch's gradients does); one ``python -m
+   srgd_tpu_torch.infer --mesh N,1`` subprocess writing its PNG; and one
+   ``python -m srgd_tpu_torch.serve --mesh N,1`` daemon answering a request
+   and exiting 0 on SIGTERM. On a
+   machine of more cards only this phase uses them: the others run on
+   card 0 (``train`` with ``--device cuda:0``).
+12. bench: one U-Net forward (b = 8 tiles of 256 px) and one even and one odd
    step of a 512-px LR input (2304 canvas), for the default net and for the
    ``use_pallas`` net.
-12. profile, only with ``--profile``: ``torch.profiler`` over three forwards of
+13. profile, only with ``--profile``: ``torch.profiler`` over three forwards of
    each net (default, ``use_pallas`` and the int8 net of phase 10, which
    must launch none of PyTorch's abs or round kernels), device time
    per kernel name, per kernel of the port (summed over all its launches and
@@ -129,6 +145,7 @@ import itertools
 import json
 import math
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -190,7 +207,7 @@ KERNELS = {
 }
 # the phases whose launches count as the main paths' in the summary
 MAIN_PATHS = ('slice', 'slice_pallas', 'deep_cache', 'families', 'serve',
-              'train', 'int8')
+              'train', 'int8', 'mesh')
 OFF_PATH = ('linear_attention',)   # a public entry that no module calls
 PALLAS_FLAGS = dict(use_pallas=True, use_pallas_attention=True,
                     fused_linattn=False)
@@ -945,6 +962,13 @@ def _http(port, method, path, body=None):
         return r.status, r.getheader('Content-Type'), r.read()
     finally:
         conn.close()
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        return sock.getsockname()[1]
 
 
 def _png(w, h, seed):
@@ -1824,9 +1848,10 @@ def phase_train(torch, device, *, conf=TRAIN_YAML, images=40, image_size=320,
         data_dir, out_dir = (os.path.join(tmp, d) for d in ('data', 'run'))
         os.makedirs(data_dir)
         _synth_pngs(data_dir, images, image_size, seed)
+        # card 0 alone, however many cards the machine has
         argv = ['-c', conf_path, '--data_dir', data_dir, '--out_dir',
                 out_dir, '--save_every', str(save_every), '--log_every', '1',
-                '--device', device.type]
+                '--device', 'cuda:0' if on_card else 'cpu']
         per_forward = _per_forward(list(build_unet_from_config(
             cfg, device='meta').modules()))
         checks = {}
@@ -2043,6 +2068,271 @@ def _bench_net(torch, device, wrapper, cond, *, tile_size, batch_size, seed,
                 'even_step_ms': even, 'odd_step_ms': odd,
                 'ms_per_step': ms[248] / 2,
                 'implied_seconds_250_steps': 125 * ms[248] / 1e3}
+
+
+MESH_TRAIN_RTOL = 1e-4
+# relative L2 gap of Adam's first moment after a mesh step, by compute dtype
+MESH_MU_RTOL = {'bfloat16': BF16_RTOL, 'float32': MESH_TRAIN_RTOL}
+
+
+def _first_step_gap(torch, plain, params: dict, opt_state: dict) -> dict:
+    """One device's live state after a step (``plain``) against a mesh
+    run's whole ``params`` and its checkpoint's ``opt_state``: Adam's first
+    moment (a tenth of the step's gradient), its relative L2 gap and how
+    many entries changed sign; the parameters' largest gap, and how many of
+    their bf16 casts (the weights a bf16 forward uses) differ."""
+    d2 = n2 = 0.0
+    sign_flips = 0
+    for idx, st in plain.optimizer.state_dict()['state'].items():
+        a = st['mu'].detach().double().cpu()
+        b = opt_state['state'][idx]['mu'].double()
+        d2 += float((a - b).pow(2).sum())
+        n2 += float(a.pow(2).sum())
+        sign_flips += int((torch.sign(a) != torch.sign(b)).sum())
+    gap, casts, total = 0.0, 0, 0
+    for k, v in plain.params.items():
+        a, b = v.detach().float().cpu(), params[k].float()
+        gap = max(gap, float((a - b).abs().max()))
+        casts += int((a.bfloat16() != b.bfloat16()).sum())
+        total += a.numel()
+    return {'mu_rel_l2': math.sqrt(d2 / n2), 'mu_sign_flips': sign_flips,
+            'param_max_abs': gap, 'param_bf16_casts_changed': casts,
+            'param_count': total}
+
+
+def _mesh_sample_rank(mesh, size, tile_size, steps, batch_size, seed, net_kw):
+    """One rank of the mesh phase: the flagship sampler on this rank's card,
+    plainly (the reference, and again to time it) and through the mesh
+    (``tiled_sample(mesh=...)``; checked, and again to time it), each
+    counted. Rank 0's result goes home."""
+    import torch
+
+    from srgd_tpu_torch.diffusion.base import GeneratorNoise
+    device = mesh.device
+    wrapper = build_flagship(torch, device, seed=seed, **net_kw)
+    cond, label = _slice_inputs(torch, device, size, seed)
+
+    def sample(m):
+        return _counted(torch, device, wrapper, lambda: wrapper.tiled_sample(
+            cond, label, batch_size=batch_size, tile_size=tile_size,
+            class_cond_scale=2.0, num_sample_steps=steps,
+            noise=GeneratorNoise(seed + 2, device), mesh=m))
+
+    plain, _, _, _, _ = sample(None)
+    # the first mesh run also sets up the data group's communicator: it is
+    # checked and counted, the second one timed
+    out, forwards, _, launches, _ = sample(mesh)
+    _, _, _, _, mesh_s = sample(mesh)
+    _, _, _, _, plain_s = sample(None)
+    checks, per_forward = _slice_checks(torch, device, wrapper, out, size,
+                                        forwards, launches)
+    diff = (out.float() - plain.float()).abs().max().item()
+    # every chunk keeps its world-1 batch: every world gives world 1's bits
+    bit_equal = checks['bit_equal_to_plain'] = bool(torch.equal(out, plain))
+    return {'checks': checks, 'forwards': forwards, 'launches': launches,
+            'per_forward': per_forward, 'bit_equal': bit_equal,
+            'max_abs_diff': diff, 'ms_per_step_plain': plain_s / steps * 1e3,
+            'ms_per_step_mesh': mesh_s / steps * 1e3}
+
+
+def phase_mesh(torch, device, *, size=512, tile_size=256, steps=2,
+               batch_size=8, seed=0, train_conf=TRAIN_YAML, images=8,
+               image_size=320, cli_conf=SHIPPED_YAML,
+               cli_size=64, cli_steps=2, **net_kw):
+    """The device mesh (``srgd_tpu_torch.parallel``, ``--mesh``) on every
+    visible card: one rank per card through NCCL, in this process at world
+    1 (a CPU rehearsal: one gloo rank).
+
+    - sampling: the flagship sampler of phase ``slice`` through the mesh
+      (the data ranks split the tile chunks and all-gather them) against the
+      plain sampler on the same seed: bit-equal at every world; every
+      forward of the mesh run launched 6 / 3; the ms per step of both (at
+      world 1, where no collective runs, the difference is the mesh path's
+      own cost);
+    - training: one step of ``train.loop.train`` with ``mesh_shape`` (N, 1)
+      against one step on one device (``train.loop.train_on``), on
+      ``images`` procedural PNGs, then each resumed to step 2
+      (``_first_step_gap`` and ``MESH_TRAIN_RTOL``, ``MESH_MU_RTOL``): step
+      1's loss, Adam's first moment and the parameters; step 2's loss at
+      ``MESH_TRAIN_RTOL`` at world 1 (finite at world N); whether losses and
+      parameters matched bit for bit. At world N the same again with
+      float32 compute;
+    - the CLI: one ``python -m srgd_tpu_torch.infer --mesh N,1`` subprocess
+      (it spawns its ranks itself at N > 1) writes its PNG at 4x a
+      ``cli_size`` input;
+    - the daemon: one ``python -m srgd_tpu_torch.serve --mesh N,1``
+      subprocess reports the mesh on /healthz, answers one seeded request
+      at 4x and exits 0 on SIGTERM.
+
+    The mesh runs' launches (rank 0's), sampling and training, are the
+    phase's ``launches``."""
+    import copy
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from PIL import Image
+
+    from srgd_tpu_torch.checkpoint import restore_params
+    from srgd_tpu_torch.config import load_config
+    from srgd_tpu_torch.parallel.mesh import launch
+    from srgd_tpu_torch.train import loop
+    on_card = device.type == 'cuda'
+    world = torch.cuda.device_count() if on_card else 1
+    here = os.path.dirname(os.path.abspath(__file__))
+    res = {'phase': 'mesh', 'world': world, 'shape': [world, 1],
+           'size': size, 'steps': steps}
+    t0 = time.perf_counter()
+    sampled = launch(_mesh_sample_rank, (world, 1), device.type,
+                     (size, tile_size, steps, batch_size, seed, net_kw))
+    checks = {f'sample_{k}': v for k, v in sampled.pop('checks').items()}
+    res.update(sampled)
+    if world == 1:   # the mesh path's own cost: no collective runs
+        res['mesh_overhead_ms_per_step'] = (
+            sampled['ms_per_step_mesh'] - sampled['ms_per_step_plain'])
+    res['mesh_speedup'] = (sampled['ms_per_step_plain']
+                           / sampled['ms_per_step_mesh'])
+    res['sample_seconds'] = time.perf_counter() - t0
+
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_mesh_')
+    try:
+        t0 = time.perf_counter()
+        data_dir = os.path.join(tmp, 'data')
+        os.makedirs(data_dir)
+        _synth_pngs(data_dir, images, image_size, seed)
+        cfg = load_config(os.path.join(here, train_conf))
+        res['train'] = train = {}
+        res['train_launches'] = dict.fromkeys(KERNELS, 0)
+        # at world N also in float32: what the bf16 rounding of the split
+        # batch's gradients does (spawned ranks take this process's float32
+        # settings)
+        for dtype in [cfg.compute_dtype] + (['float32'] if world > 1 else []):
+            c = copy.deepcopy(cfg)
+            c.compute_dtype = dtype
+            r = train[dtype] = {}
+            plain_dir, mesh_dir = (os.path.join(tmp, f'{w}_{dtype}')
+                                   for w in ('plain', 'mesh'))
+            for steps in (1, 2):    # one step, then each resumed to step 2
+                plain = loop.train_on(None, copy.deepcopy(c), data_dir,
+                                      plain_dir, steps, 1, 10 ** 6, steps > 1,
+                                      None, device)
+                reset_counts()
+                meshed = loop.train(copy.deepcopy(c), data_dir, mesh_dir,
+                                    total_steps=steps, log_every=1,
+                                    save_every=10 ** 6, mesh_shape=(world, 1),
+                                    device=device.type)
+                if dtype == cfg.compute_dtype:
+                    for k, v in read_counts().items():
+                        res['train_launches'][k] += v
+                r[f'steps_{steps}'] = meshed.step
+                r[f'loss_{steps}'] = {'plain': plain.losses[-1],
+                                      'mesh': meshed.losses[-1]}
+                if steps == 1:
+                    saved = restore_params(os.path.join(
+                        mesh_dir, c.prefix or 'ckpt'))['opt_state']
+                    r.update(_first_step_gap(torch, plain, meshed.params,
+                                             saved))
+                    del saved
+                else:
+                    r['params_bit_equal'] = all(
+                        torch.equal(v.detach().cpu(), meshed.params[k])
+                        for k, v in plain.params.items())
+                del plain, meshed
+
+            def close(losses):
+                return math.isfinite(losses['mesh']) and abs(
+                    losses['mesh'] - losses['plain']) <= (
+                        MESH_TRAIN_RTOL * abs(losses['plain']))
+            tag = f'train_{dtype}'
+            checks[f'{tag}_steps'] = (r['steps_1'], r['steps_2']) == (1, 2)
+            # step 1: the same parameters and global batch, so the loss is
+            # one device's up to the order of its mean, and Adam's first
+            # moment is a tenth of the all-reduced gradient: a gradient that
+            # missed the all-reduce, or one rank's rows, is off by its size
+            checks[f'{tag}_loss_1'] = close(r['loss_1'])
+            checks[f'{tag}_mu_1'] = r['mu_rel_l2'] <= MESH_MU_RTOL[dtype]
+            # Adam moves each parameter about lr, either way
+            checks[f'{tag}_params_1'] = r['param_max_abs'] <= 2 * cfg.lr
+            checks[f'{tag}_loss_2'] = (close(r['loss_2']) if world == 1
+                                       else math.isfinite(r['loss_2']['mesh']))
+        res['launches'] = {k: v + res['train_launches'][k]
+                           for k, v in res['launches'].items()}
+        main = train[cfg.compute_dtype]
+        res['train_losses'] = {w: [main['loss_1'][w], main['loss_2'][w]]
+                               for w in ('plain', 'mesh')}
+        res['train_losses_bit_equal'] = (res['train_losses']['plain']
+                                         == res['train_losses']['mesh'])
+        res['train_params_bit_equal'] = main['params_bit_equal']
+        res['train_seconds'] = time.perf_counter() - t0
+
+        # the CLI, with its own launcher
+        t0 = time.perf_counter()
+        in_dir, out_dir = (os.path.join(tmp, d) for d in ('in', 'out'))
+        os.makedirs(in_dir)
+        rng = np.random.default_rng(seed)
+        Image.fromarray(rng.integers(0, 255, (cli_size, cli_size, 3),
+                                     dtype=np.uint8)).save(
+            os.path.join(in_dir, 'a.png'))
+        cmd = [sys.executable, '-m', 'srgd_tpu_torch.infer', '-c',
+               os.path.join(here, cli_conf), '-m', '', '--input_dir', in_dir,
+               '--output_dir', out_dir, '--num_sample_steps', str(cli_steps),
+               '--tile_size', str(tile_size), '--batch_size',
+               str(batch_size), '--precision', 'bf16', '--test_label', '1',
+               '--mesh', f'{world},1', '--device', device.type]
+        proc = subprocess.run(cmd, cwd=here, capture_output=True, text=True,
+                              env=dict(os.environ, PYTHONPATH=here))
+        out_png = os.path.join(out_dir, 'a_out.png')
+        checks['cli_exit'] = proc.returncode == 0
+        checks['cli_png'] = (os.path.exists(out_png) and Image.open(
+            out_png).size == (4 * cli_size, 4 * cli_size))
+        if proc.returncode:
+            res['cli_stderr'] = proc.stderr[-2000:]
+        res['cli_seconds'] = time.perf_counter() - t0
+
+        # the daemon, with its own launcher: /healthz, one seeded request,
+        # then SIGTERM (rank 0 drains and stops the others)
+        t0 = time.perf_counter()
+        port = _free_port()
+        cmd = [sys.executable, '-m', 'srgd_tpu_torch.serve', '-c',
+               os.path.join(here, cli_conf), '-m', '', '--mode', 'http',
+               '--port', str(port), '--num_sample_steps', str(cli_steps),
+               '--tile_size', str(tile_size), '--batch_size', str(batch_size),
+               '--test_label', '1', '--mesh', f'{world},1', '--device',
+               device.type]
+        daemon = subprocess.Popen(cmd, cwd=here, stdout=subprocess.DEVNULL,
+                                  stderr=subprocess.PIPE, text=True,
+                                  env=dict(os.environ, PYTHONPATH=here),
+                                  start_new_session=True)
+        try:
+            health, deadline = None, time.time() + 600
+            while health is None and daemon.poll() is None \
+                    and time.time() < deadline:
+                try:
+                    health = json.loads(_http(port, 'GET', '/healthz')[2])
+                except OSError:
+                    time.sleep(0.5)
+            checks['serve_health_mesh'] = (health or {}).get('mesh') == [
+                world, 1]
+            if health is not None:
+                status, _, body = _http(port, 'POST', '/v1/sr?seed=3',
+                                        _png(cli_size, cli_size, seed))
+                checks['serve_png'] = status == 200 and _decoded(
+                    body).shape[:2] == (4 * cli_size, 4 * cli_size)
+            daemon.send_signal(signal.SIGTERM)
+            err = daemon.communicate(timeout=600)[1]
+            checks['serve_exit'] = daemon.returncode == 0
+            if daemon.returncode or health is None:
+                res['serve_stderr'] = err[-2000:]
+        finally:
+            if daemon.poll() is None:
+                os.killpg(daemon.pid, signal.SIGKILL)
+                daemon.communicate()
+        res['serve_seconds'] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res['checks'] = checks
+    res['ok'] = all(checks.values())
+    return res
 
 
 def phase_bench(torch, device, *, lr_size=512, tile_size=256, batch_size=8,
@@ -2345,9 +2635,9 @@ def phase_profile(torch, device, *, tile_size=256, batch_size=8, seed=0,
 def summary(kernels, *paths):
     """One entry per kernel: ``launches``, its launches on the main paths
     (``slice``, ``slice_pallas``, ``deep_cache``, ``families``, ``serve``,
-    ``train``, ``int8``; each run counted from 0 around that run alone), the
-    largest error over its cases (``int8_conv``'s are the int8 phase's), and
-    the times and bound of its first bfloat16 case.
+    ``train``, ``int8``, ``mesh``; each run counted from 0 around that run
+    alone), the largest error over its cases (``int8_conv``'s are the int8
+    phase's), and the times and bound of its first bfloat16 case.
     ``drive_launches`` counts launches outside any path: no module calls
     ``linear_attention``, so its ``launches`` is 0 and the one direct call of
     ``slice_pallas`` stands there."""
@@ -2392,7 +2682,8 @@ def main() -> int:
     emit(dev)
     emit(phase_build())
     todo = [phase_kernels, phase_slice, phase_slice_pallas, phase_deep_cache,
-            phase_families, phase_serve, phase_train, phase_int8, phase_bench]
+            phase_families, phase_serve, phase_train, phase_int8, phase_mesh,
+            phase_bench]
     if '--profile' in sys.argv[1:]:
         todo.append(phase_profile)
     phases = []

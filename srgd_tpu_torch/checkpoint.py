@@ -148,6 +148,30 @@ def flax_to_torch_unet_state_dict(params: dict, *,
     return {k: np.asarray(v, dtype) for k, v in out.items()}
 
 
+def jax_leaf(key: str) -> str:
+    """The leaf name, in the JAX param tree, of the entry the port's
+    state-dict entry ``key`` converts from, following
+    ``flax_to_torch_unet_state_dict`` and the learned schedule's layers: an
+    RMSNorm gain ``g``, the learned sinusoidal ``weights``, the class
+    ``embedding``, GroupNorm's ``norm_scale`` / ``norm_bias``, and every
+    other ``weight`` / ``bias`` a Dense or Conv ``kernel`` / ``bias``."""
+    if key.endswith('.g'):
+        return 'g'
+    if key.endswith('.weights'):
+        return 'weights'
+    if key == 'class_mlp.0.weight':
+        return 'embedding'
+    if key.endswith('.norm.weight'):
+        return 'norm_scale'
+    if key.endswith('.norm.bias'):
+        return 'norm_bias'
+    if key.endswith('.weight'):
+        return 'kernel'
+    if key.endswith('.bias'):
+        return 'bias'
+    raise KeyError(f'no JAX leaf converts to {key!r}')
+
+
 # the learned schedule's JAX layers and their reference keys (Sequential
 # and Residual nesting of the MonotonicLinear stack)
 _LOG_SNR_LAYERS = {'l1': 'net.1.net', 'l2': 'net.2.fn.0.net',
@@ -265,8 +289,11 @@ def load_reference_checkpoint(path) -> dict:
     """The state dict of a reference-format ``.pth``: its ``ema_model``
     entry (or the whole file when it has none), with the wrapper prefix
     stripped and the schedule buffers dropped; a learned log-SNR schedule's
-    ``log_snr.*`` entries stay. Raises KeyError for any other entry outside
-    the U-Net."""
+    ``log_snr.*`` entries stay. Any other entry outside the U-Net is logged
+    and left out, never raised, as ``convert_checkpoint`` of the JAX
+    package returns it among its extras; whether unknown U-Net keys raise
+    is ``load_strict``'s, decided where the net loads them
+    (``factory.get_model``)."""
     ckpt = torch.load(path, map_location='cpu', weights_only=True)
     sd = ckpt['ema_model'] if 'ema_model' in ckpt else ckpt
     unet_sd, extras = strip_wrapper_prefix(sd)
@@ -275,7 +302,8 @@ def load_reference_checkpoint(path) -> dict:
                 if k.startswith(_SCHEDULE_PREFIX)}
     unknown = sorted(set(extras) - set(schedule))
     if unknown:
-        raise KeyError(f'unexpected non-U-Net keys: {unknown[:10]}')
+        logger.info('%s: %d entries outside the U-Net left out: %s', path,
+                    len(unknown), unknown[:10])
     return {**unet_sd, **schedule}
 
 

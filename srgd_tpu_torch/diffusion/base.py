@@ -1,7 +1,8 @@
 """Shared diffusion machinery: normalisation, fused classifier-free guidance,
 the DeepCache refresh schedule, the tiled sampler's per-parity tile
-batches, and the pieces the three training losses share (draws, condition
-dropout, the elementwise loss).
+batches and its chunk loop (split over a mesh's data ranks), and the pieces
+the three training losses share (draws, condition dropout, the elementwise
+loss).
 
 Counterpart of ``srgd_tpu/diffusion/base.py``. Guidance runs the conditional
 and the null branch as ONE doubled batch in ``[cond, null]`` order and merges
@@ -394,3 +395,50 @@ def prepare_tile_context(cond_padded, geom, batch: int, batch_size: int,
                                     device=cond_padded.device)
         interior_mask[:, it:ib, il:ir, :] = 1.0
     return cond_tiles, label_tiles, n_chunks, chunks, interior_mask
+
+
+def run_tile_chunks(step: Callable, dc, j: int, parity: int, n_chunks: int,
+                    chunk: int, n_orig: int, like: torch.Tensor,
+                    n_out: int = 1, mesh=None) -> list:
+    """One grid parity's chunk loop: ``step(sl, **cache_kw)`` denoises the
+    padded tile rows ``sl`` (through ``dc.step`` with step counter ``j``)
+    and returns a tuple whose first ``n_out`` entries are kept; returns
+    those outputs over every tile, in tile order, cut to ``n_orig`` rows.
+
+    With a ``parallel.mesh.Mesh`` data rank d runs the contiguous block
+    [d * m, (d + 1) * m) of the chunks, m = ceil(n_chunks / data), and the
+    blocks are all-gathered over the data axis. Every chunk keeps the
+    batch it has at world 1, so every world gives world 1's bits. Before
+    the gather the data ranks agree that each ran its block: when one
+    raised, all raise ``MeshSampleError`` there, so no rank waits in a
+    gather that another never joins. ``like``: a tensor of the outputs' row
+    shape and dtype (for a rank with no chunk)."""
+    split = mesh is not None and mesh.data_size > 1
+    lo, hi, counts = 0, n_chunks, None
+    if split:
+        per = -(-n_chunks // mesh.data_size)
+        blocks = [(min(d * per, n_chunks), min((d + 1) * per, n_chunks))
+                  for d in range(mesh.data_size)]
+        lo, hi = blocks[mesh.data_rank]
+        counts = [(b - a) * chunk for a, b in blocks]
+    outs, failure = [], None
+    try:
+        for k in range(lo, hi):
+            sl = slice(k * chunk, (k + 1) * chunk)
+            outs.append(dc.step(lambda **kw: step(sl, **kw), j, parity, sl))
+    except Exception as e:
+        if not split:
+            raise
+        failure = e
+    if split and not mesh.all_ok(failure is None):
+        from srgd_tpu_torch.parallel.mesh import MeshSampleError
+        raise MeshSampleError('a data rank failed its tile chunks') \
+            from failure
+    result = []
+    for i in range(n_out):
+        local = (torch.cat([o[i] for o in outs]) if outs
+                 else like.new_empty((0, *like.shape[1:])))
+        if split:
+            local = mesh.gather_data_rows(local, counts)
+        result.append(local[:n_orig])
+    return result

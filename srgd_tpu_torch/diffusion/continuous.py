@@ -62,7 +62,8 @@ from srgd_tpu_torch.diffusion.base import (
     GeneratorNoise, drop_conditions, elementwise_loss, guidance_scale,
     guided_denoise, make_deep_cache, nhwc_net_apply,
     normalize_to_neg_one_to_one, pad_tiles_to_multiple, per_sample_mean,
-    prepare_tile_context, resolve_guidance_mode, unnormalize_to_zero_to_one,
+    prepare_tile_context, resolve_guidance_mode, run_tile_chunks,
+    unnormalize_to_zero_to_one,
 )
 from srgd_tpu_torch.diffusion.schedules import (
     LOG_SNR_SCHEDULES, make_log_snr_table,
@@ -276,11 +277,12 @@ class ContinuousDiffusion:
                      class_guidance_start_steps: int = 0,
                      generation_start_steps: int = 0,
                      num_sample_steps: int | None = None,
-                     start_white_noise: bool = True, noise=None):
+                     start_white_noise: bool = True, noise=None, mesh=None):
         """Alternating-grid tiled sampling. condition_x: (B, H, W, C) in
         [0, 1] at the target resolution (the pre-upscaled LR image); returns
         (B, H, W, C) in [0, 1]. ``noise``: the noise source (default
-        ``GeneratorNoise(0, device)``)."""
+        ``GeneratorNoise(0, device)``); ``mesh``: a ``parallel.mesh.Mesh``
+        whose data ranks split the tile chunks (``base.run_tile_chunks``)."""
         n_steps = num_sample_steps or self.num_sample_steps
         b, h, w, _ = condition_x.shape
         geom = make_geometry(h, w, tile_size, tile_stride)
@@ -325,24 +327,19 @@ class ContinuousDiffusion:
             if not is_last and self.uses_step_noise:
                 nz, _ = tiled(noise.step(i, canvas), p)
             px = tiled(x0_canvas, p)[0] if dpmpp and i > gss else None
-            outs, x0s = [], []
-            for k in range(n_chunks[p]):
-                sl = slice(k * chunks[p], (k + 1) * chunks[p])
-                nx, xs = dc.step(
-                    lambda **kw: self.p_sample_tiles(
-                        tiles[sl], cond_tiles[p][sl],
-                        None if label_tiles[p] is None else label_tiles[p][sl],
-                        None if nz is None else nz[sl], table[i],
-                        table[i + 1], mode, scale, is_last,
-                        prev_x0=None if px is None else px[sl],
-                        log_snr_prev=table[max(i - 1, 0)], **kw),
-                    (i - gss) // 2, p, sl)
-                outs.append(nx)
-                x0s.append(xs)
-            img = scatter_tiles(img, torch.cat(outs)[:n_orig], geom, p)
+            outs = run_tile_chunks(
+                lambda sl, **kw: self.p_sample_tiles(
+                    tiles[sl], cond_tiles[p][sl],
+                    None if label_tiles[p] is None else label_tiles[p][sl],
+                    None if nz is None else nz[sl], table[i], table[i + 1],
+                    mode, scale, is_last,
+                    prev_x0=None if px is None else px[sl],
+                    log_snr_prev=table[max(i - 1, 0)], **kw),
+                dc, (i - gss) // 2, p, n_chunks[p], chunks[p], n_orig, tiles,
+                n_out=2 if dpmpp else 1, mesh=mesh)
+            img = scatter_tiles(img, outs[0], geom, p)
             if dpmpp:
-                x0_canvas = scatter_tiles(x0_canvas, torch.cat(x0s)[:n_orig],
-                                          geom, p)
+                x0_canvas = scatter_tiles(x0_canvas, outs[1], geom, p)
 
             if p == 1 and interior_mask is not None:
                 # margin := q_sample(zeros, t_next) = sigma_next * noise, after

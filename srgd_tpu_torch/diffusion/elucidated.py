@@ -39,7 +39,8 @@ from srgd_tpu_torch.diffusion.base import (
     GeneratorNoise, drop_conditions, elementwise_loss, guidance_scale,
     guided_denoise, make_deep_cache, nhwc_net_apply,
     normalize_to_neg_one_to_one, pad_tiles_to_multiple, per_sample_mean,
-    prepare_tile_context, resolve_guidance_mode, unnormalize_to_zero_to_one,
+    prepare_tile_context, resolve_guidance_mode, run_tile_chunks,
+    unnormalize_to_zero_to_one,
 )
 from srgd_tpu_torch.diffusion.schedules import EDMParams
 from srgd_tpu_torch.tiling import (
@@ -230,9 +231,10 @@ class ElucidatedDiffusion:
                      tile_stride: int | None = None, cond_scale=1.0,
                      guidance_start_steps=0, class_cond_scale=1.0,
                      class_guidance_start_steps=0, generation_start_steps=0,
-                     num_sample_steps=None, noise=None):
+                     num_sample_steps=None, noise=None, mesh=None):
         """Alternating-grid tiled Heun. condition_x: (B, H, W, C) in [0, 1]
-        at the target resolution; returns (B, H, W, C) in [0, 1]."""
+        at the target resolution; returns (B, H, W, C) in [0, 1]. ``mesh``:
+        as the continuous family's."""
         n = num_sample_steps or self.num_sample_steps
         b, h, w, _ = condition_x.shape
         geom = make_geometry(h, w, tile_size, tile_stride)
@@ -258,18 +260,15 @@ class ElucidatedDiffusion:
                                             lambda: noise.step(i, canvas))
             tiles, n_orig = pad_tiles_to_multiple(
                 extract_tiles(img_hat, geom, p), chunks[p])
-            outs = []
-            for k in range(n_chunks[p]):
-                sl = slice(k * chunks[p], (k + 1) * chunks[p])
-                nx, = dc.step(
-                    lambda **kw: self.heun(
-                        tiles[sl], sigma_hat, sig[i + 1], cond_tiles[p][sl],
-                        None if label_tiles[p] is None else label_tiles[p][sl],
-                        mode, scale, i < n - 1, **kw),
-                    (i - gss) // 2, p, sl)
-                outs.append(nx)
+            out, = run_tile_chunks(
+                lambda sl, **kw: self.heun(
+                    tiles[sl], sigma_hat, sig[i + 1], cond_tiles[p][sl],
+                    None if label_tiles[p] is None else label_tiles[p][sl],
+                    mode, scale, i < n - 1, **kw),
+                dc, (i - gss) // 2, p, n_chunks[p], chunks[p], n_orig, tiles,
+                mesh=mesh)
             # the tiles' Heun steps land on the un-churned canvas
-            img = scatter_tiles(img, torch.cat(outs)[:n_orig], geom, p)
+            img = scatter_tiles(img, out, geom, p)
 
             if p == 1 and interior_mask is not None:
                 fresh = float(sig[i]) * noise.margin(i, canvas)

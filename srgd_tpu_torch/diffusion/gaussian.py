@@ -37,7 +37,8 @@ from srgd_tpu_torch.diffusion.base import (
     GeneratorNoise, drop_conditions, elementwise_loss, guidance_scale,
     guided_denoise, make_deep_cache, nhwc_net_apply,
     normalize_to_neg_one_to_one, pad_tiles_to_multiple, per_sample_mean,
-    prepare_tile_context, resolve_guidance_mode, unnormalize_to_zero_to_one,
+    prepare_tile_context, resolve_guidance_mode, run_tile_chunks,
+    unnormalize_to_zero_to_one,
 )
 from srgd_tpu_torch.tiling import (
     extract_tiles, make_geometry, reflect_pad, scatter_tiles,
@@ -261,10 +262,11 @@ class GaussianDiffusion:
                      tile_stride: int | None = None, cond_scale=1.0,
                      guidance_start_steps=0, class_cond_scale=1.0,
                      class_guidance_start_steps=0, generation_start_steps=0,
-                     num_sample_steps=None, noise=None):
+                     num_sample_steps=None, noise=None, mesh=None):
         """Alternating-grid tiled DDIM over ``ddim_time_pairs(T, n)``.
         condition_x: (B, H, W, C) in [0, 1] at the target resolution;
-        returns (B, H, W, C) in [0, 1]."""
+        returns (B, H, W, C) in [0, 1]. ``mesh``: as the continuous
+        family's."""
         n_steps = num_sample_steps or self.sampling_timesteps
         b, h, w, _ = condition_x.shape
         geom = make_geometry(h, w, tile_size, tile_stride)
@@ -294,17 +296,14 @@ class GaussianDiffusion:
                                    class_cond_scale,
                                    class_guidance_start_steps)
             tiles, n_orig = tiled(img, p)
-            outs = []
-            for k in range(n_chunks[p]):
-                sl = slice(k * chunks[p], (k + 1) * chunks[p])
-                nx, = dc.step(
-                    lambda **kw: self.ddim_step(
-                        tiles[sl], time, time_next, cond_tiles[p][sl],
-                        None if label_tiles[p] is None else label_tiles[p][sl],
-                        mode, scale, **kw),
-                    (i - gss) // 2, p, sl)
-                outs.append(nx)
-            img = scatter_tiles(img, torch.cat(outs)[:n_orig], geom, p)
+            out, = run_tile_chunks(
+                lambda sl, **kw: self.ddim_step(
+                    tiles[sl], time, time_next, cond_tiles[p][sl],
+                    None if label_tiles[p] is None else label_tiles[p][sl],
+                    mode, scale, **kw),
+                dc, (i - gss) // 2, p, n_chunks[p], chunks[p], n_orig, tiles,
+                mesh=mesh)
+            img = scatter_tiles(img, out, geom, p)
 
             if p == 1 and interior_mask is not None and time_next >= 0:
                 # margin := q_sample(zeros, t_next); the terminal step keeps

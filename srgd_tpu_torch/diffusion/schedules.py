@@ -194,7 +194,8 @@ class MonotonicLinear(nn.Module):
         self.net = nn.Linear(d_in, d_out, device=device)
 
     def forward(self, x):
-        return F.linear(x, self.net.weight.abs(), self.net.bias.abs())
+        return F.linear(x, self.net.weight.abs().float(),
+                        self.net.bias.abs().float())
 
 
 class _Residual(nn.Module):

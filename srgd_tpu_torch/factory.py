@@ -5,8 +5,16 @@ families (``continuous``, ``gaussian``, ``elucidated`` and their
 ``conditional_`` variants). With a checkpoint the net, and a learned log-SNR
 schedule, load a reference-format ``.pth``, or the EMA parameters of a
 checkpoint directory the port's trainer wrote (as ``srgd_tpu/factory.py``
-reads an orbax directory), strictly; without one their weights are drawn
-from a generator seeded with ``conf.seed``, the net's first.
+reads an orbax directory); without one their weights are drawn from a
+generator seeded with ``conf.seed``, the net's first.
+
+Loading follows ``convert_checkpoint``'s rule: entries outside the U-Net
+never raise (``load_reference_checkpoint`` logs them), U-Net keys the net
+does not have raise only under ``load_strict``, and a parameter the file
+lacks always raises. ``param_dtype: bfloat16`` stores every parameter, the
+learned schedule's too, in bfloat16 after loading or initialising, as
+``srgd_tpu/factory.py:load_params`` casts the param tree; each module casts
+its weights to its compute dtype where it uses them.
 """
 
 from __future__ import annotations
@@ -98,8 +106,9 @@ def build_wrapper(conf, net, log_snr=None):
 def get_model(conf, ckpt_path: str | None = None, *, device, dtype=None):
     """Build (wrapper, net) on ``device``; ``dtype`` overrides
     ``conf.compute_dtype``."""
-    if conf.param_dtype != 'float32':
-        raise NotImplementedError('srgd_tpu_torch keeps float32 parameters')
+    if conf.param_dtype not in ('float32', 'bfloat16'):
+        raise ValueError(f'param_dtype {conf.param_dtype!r}: float32 or '
+                         'bfloat16')
     net = build_unet_from_config(conf, dtype=dtype, device='meta')
     net = net.to_empty(device=device).eval()
     log_snr = None
@@ -112,7 +121,7 @@ def get_model(conf, ckpt_path: str | None = None, *, device, dtype=None):
         unet_sd, schedule_sd = split_schedule(
             load_trained_checkpoint(ckpt_path) if trained
             else load_reference_checkpoint(ckpt_path))
-        net.load_state_dict(unet_sd, strict=True)
+        load_unet_state(net, unet_sd, conf.load_strict)
         if log_snr is not None:
             log_snr.load_state_dict(schedule_sd, strict=True)
         elif schedule_sd:
@@ -127,4 +136,24 @@ def get_model(conf, ckpt_path: str | None = None, *, device, dtype=None):
         if log_snr is not None:
             log_snr.init_weights(gen)
         logger.info('random weights from seed %d (no ckpt_path)', conf.seed)
+    if conf.param_dtype == 'bfloat16':
+        with torch.no_grad():
+            for m in (net, log_snr):
+                for p in () if m is None else m.parameters():
+                    p.data = p.data.to(torch.bfloat16)
     return build_wrapper(conf, net, log_snr), net
+
+
+def load_unet_state(net, unet_sd: dict, strict: bool) -> None:
+    """``unet_sd`` into ``net``: keys the net does not have raise under
+    ``strict`` (the JAX converter's unconverted keys) and are logged
+    otherwise; a parameter missing from ``unet_sd`` always raises."""
+    missing, unexpected = net.load_state_dict(unet_sd, strict=False)
+    if missing:
+        raise KeyError(f'U-Net parameters missing from the checkpoint: '
+                       f'{missing[:10]}')
+    if unexpected:
+        if strict:
+            raise KeyError(f'unconverted torch keys: {unexpected[:10]}')
+        logger.info('load_strict: false, %d U-Net keys left out: %s',
+                    len(unexpected), unexpected[:10])

@@ -11,8 +11,17 @@ rename, the x4 output-size assert, unreadable inputs skipped, and the
 accepted-but-unused --backend flag.
 
 Port additions: --device (default cuda; asking for cuda without a card
-raises). Flags whose feature is not ported (``--mesh``) raise, naming the
-ROADMAP item, instead of being ignored.
+raises).
+
+``--mesh D,M`` runs tile data parallelism over D x M ranks, one process per
+device (``parallel.mesh``: spawned here, or started by ``torchrun``; NCCL
+on the card, where D x M must equal the visible GPUs, gloo with
+``--device cpu``). Each data rank samples its block of every grid parity's
+tile chunks and the blocks are all-gathered, so the PNG is the one rank's
+PNG bit for bit; the model axis replicates the weights and splits no work,
+as in the JAX CLI. Rank 0 lists the pending inputs and is the only writer;
+with ``--quant_calibrate`` it calibrates (or loads the cache) and sends the
+scales to the other ranks.
 
 ``--precision int8`` is the JAX CLI's W8A8 path: bf16 compute with the
 U-Net's convs at least ``--quantize_min_channels`` wide (512 by default)
@@ -124,14 +133,6 @@ def add_quant_args(p) -> None:
                         'recalibrates and rewrites it')
 
 
-def check_ported(args) -> None:
-    """Raise for every flag whose feature the port does not have yet."""
-    if args.mesh:
-        raise NotImplementedError(
-            '--mesh is not ported to srgd_tpu_torch yet (ROADMAP.md Queue 1 '
-            'item 15)')
-
-
 def resolve_device(name: str) -> torch.device:
     device = torch.device(name)
     if device.type == 'cuda' and not torch.cuda.is_available():
@@ -159,11 +160,15 @@ class Sampler:
     """The tiled sampler with the CLI's options, re-seeded for every image.
 
     ``noise_for_seed(seed, device)`` makes each image's noise source
-    (default: ``GeneratorNoise``)."""
+    (default: ``GeneratorNoise``). Under a ``parallel.mesh.Mesh`` every
+    rank calls ``sample`` with the same arguments and gets the whole
+    output."""
 
-    def __init__(self, wrapper, opts: dict, device, noise_for_seed=GeneratorNoise):
+    def __init__(self, wrapper, opts: dict, device,
+                 noise_for_seed=GeneratorNoise, mesh=None):
         self.wrapper, self.opts, self.device = wrapper, opts, device
         self.noise_for_seed = noise_for_seed
+        self.mesh = mesh
 
     def sample(self, cond_np: np.ndarray, label, seed: int,
                guidance: dict | None = None) -> np.ndarray:
@@ -186,7 +191,7 @@ class Sampler:
             class_guidance_start_steps=o['class_guidance_start_steps'],
             generation_start_steps=o['generation_start_steps'],
             num_sample_steps=o['num_sample_steps'],
-            noise=self.noise_for_seed(seed, self.device))
+            noise=self.noise_for_seed(seed, self.device), mesh=self.mesh)
         return out.cpu().numpy()
 
 
@@ -225,20 +230,31 @@ def pending_outputs(input_dir, output_dir, start_index=0, end_index=None,
 def batch_sr_target_images(input_dir, output_dir, sampler: Sampler, scale=4,
                            test_label=None, start_index=0, end_index=None,
                            interpolation='bicubic', seed=71):
-    """Super-resolve every pending input of ``input_dir`` into ``output_dir``."""
-    print(f'save images at: {output_dir}')
-    os.makedirs(output_dir, exist_ok=True)
-    for filename, save_path in pending_outputs(input_dir, output_dir,
-                                               start_index, end_index,
-                                               verbose_skip=True):
+    """Super-resolve every pending input of ``input_dir`` into ``output_dir``.
+    Under a mesh rank 0 lists the inputs and writes the outputs."""
+    mesh = sampler.mesh
+    writer = mesh is None or mesh.is_writer
+    pending = None
+    if writer:
+        print(f'save images at: {output_dir}')
+        os.makedirs(output_dir, exist_ok=True)
+        pending = list(pending_outputs(input_dir, output_dir, start_index,
+                                       end_index, verbose_skip=True))
+    if mesh is not None:
+        from srgd_tpu_torch.parallel.mesh import broadcast_object
+        pending = broadcast_object(pending, mesh)
+    for filename, save_path in pending:
         image = try_open_image(filename)
         if image is None:
-            print('Invalid image or unable to open image:', filename)
+            if writer:
+                print('Invalid image or unable to open image:', filename)
             continue
         t0 = time.time()
         sr_img = sr_target_image(image, sampler, scale=scale,
                                  test_label=test_label,
                                  interpolation=interpolation, seed=seed)
+        if not writer:
+            continue
         sr_img.save(save_path)
         logger.info('%s -> %s (%.2f MPix in %.2fs)', filename, save_path,
                     sr_img.size[0] * sr_img.size[1] / 1e6, time.time() - t0)
@@ -279,13 +295,13 @@ def calibrate(args, conf, wrapper, cal_draws=None) -> None:
 
 
 def build_sampler(args, noise_for_seed=GeneratorNoise,
-                  cal_draws=None) -> Sampler:
-    """Config + flags -> the model on ``args.device`` (calibrated with
-    ``--quant_calibrate``) -> a ``Sampler``."""
+                  cal_draws=None, mesh=None) -> Sampler:
+    """Config + flags -> the model on ``args.device``, or on the rank's
+    device of ``mesh`` (calibrated with ``--quant_calibrate``, by rank 0
+    under a mesh) -> a ``Sampler``."""
     from srgd_tpu_torch.config import load_config
     from srgd_tpu_torch.factory import get_model
-    check_ported(args)
-    device = resolve_device(args.device)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     if args.matmul_precision != 'default':
         # float32 products: 'highest' keeps full float32, 'high' allows TF32
         torch.set_float32_matmul_precision(args.matmul_precision)
@@ -317,7 +333,15 @@ def build_sampler(args, noise_for_seed=GeneratorNoise,
         conf.deep_cache_schedule = args.deep_cache_schedule
     wrapper, _ = get_model(conf, device=device)
     if args.precision == 'int8' and args.quant_calibrate:
-        calibrate(args, conf, wrapper, cal_draws)
+        if mesh is None or mesh.is_writer:
+            calibrate(args, conf, wrapper, cal_draws)
+        if mesh is not None:
+            from srgd_tpu_torch.nn import quant
+            from srgd_tpu_torch.parallel.mesh import broadcast_object
+            stats = broadcast_object(quant.recorded_stats(wrapper.net)
+                                     if mesh.is_writer else None, mesh)
+            if not mesh.is_writer and stats:
+                quant.load_stats(wrapper.net, stats)
     opts = dict(batch_size=args.batch_size, tile_size=args.tile_size,
                 tile_stride=conf.tile_stride or None,
                 cond_scale=args.cond_scale,
@@ -326,7 +350,7 @@ def build_sampler(args, noise_for_seed=GeneratorNoise,
                 class_guidance_start_steps=args.class_guidance_start_steps,
                 generation_start_steps=args.generation_start_steps,
                 num_sample_steps=args.num_sample_steps, model=conf.model)
-    return Sampler(wrapper, opts, device, noise_for_seed)
+    return Sampler(wrapper, opts, device, noise_for_seed, mesh)
 
 
 def run(args, sampler: Sampler) -> None:
@@ -337,10 +361,29 @@ def run(args, sampler: Sampler) -> None:
                            interpolation=args.interpolation, seed=args.seed)
 
 
-def main(argv=None):
+def log_config():
+    """The CLIs' logging: INFO with timestamps, on every rank of a mesh."""
     logging.basicConfig(level=logging.INFO,
                         format='%(asctime)s %(name)s %(levelname)s %(message)s')
+
+
+def _mesh_rank(mesh, args):
+    """One rank of ``--mesh``."""
+    log_config()
+    sampler = build_sampler(args, mesh=mesh)
+    if mesh.is_writer:
+        print(args)
+    run(args, sampler)
+
+
+def main(argv=None):
+    log_config()
     args = parse_args(argv)
+    if args.mesh:
+        from srgd_tpu_torch.parallel.mesh import launch, parse_shape
+        launch(_mesh_rank, parse_shape(args.mesh),
+               resolve_device(args.device).type, (args,))
+        return
     sampler = build_sampler(args)
     print(args)
     run(args, sampler)

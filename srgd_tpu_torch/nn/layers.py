@@ -6,9 +6,10 @@ checkpoint's torch keys (the keys ``flax_to_torch_unet_state_dict`` emits and
 ``load_state_dict(strict=True)``.
 
 Precision follows the JAX modules with explicit casts at the same points:
-parameters are float32; convolutions take their input, weight and bias in the
-net's compute dtype; norm statistics, FiLM and the time/class MLPs are
-float32. No autocast: its rounding points differ.
+parameters are stored in float32, or in bfloat16 under ``param_dtype:
+bfloat16``; convolutions take their input, weight and bias in the net's
+compute dtype; norm statistics, FiLM and the time/class MLPs are float32.
+No autocast: its rounding points differ.
 
 Channel-order contracts that checkpoint parity depends on (NCHW gives them
 for free, the JAX package reproduces them by hand in NHWC):
@@ -68,6 +69,15 @@ class Conv2d(nn.Conv2d):
         bias = None if self.bias is None else self.bias.to(dt)
         weight = self.weight.to(dtype=dt, memory_format=torch.channels_last)
         return F.conv2d(x.to(dt), weight, bias, padding=self.padding)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in float32 whatever its parameters' storage
+    dtype, as flax ``nn.Dense`` promotes bfloat16 parameters against a
+    float32 input."""
+
+    def forward(self, x):
+        return F.linear(x.float(), self.weight.float(), self.bias.float())
 
 
 def _conv(in_ch, out_ch, kernel_size, *, quant=None, **kw):
@@ -146,8 +156,8 @@ class TimeMLP(nn.Sequential):
         else:
             emb = SinusoidalPosEmb(dim)
             fourier = dim
-        super().__init__(emb, nn.Linear(fourier, time_dim, device=device),
-                         nn.GELU(), nn.Linear(time_dim, time_dim, device=device))
+        super().__init__(emb, Linear(fourier, time_dim, device=device),
+                         nn.GELU(), Linear(time_dim, time_dim, device=device))
 
 
 class ClassMLP(nn.Sequential):
@@ -155,8 +165,8 @@ class ClassMLP(nn.Sequential):
 
     def __init__(self, num_classes: int, dim: int, time_dim: int, device=None):
         super().__init__(nn.Embedding(num_classes, dim, device=device),
-                         nn.Linear(dim, time_dim, device=device), nn.GELU(),
-                         nn.Linear(time_dim, time_dim, device=device))
+                         Linear(dim, time_dim, device=device), nn.GELU(),
+                         Linear(time_dim, time_dim, device=device))
 
 
 # ---------------------------------------------------------------------------
@@ -209,8 +219,8 @@ class ResnetBlock(nn.Module):
                  groups: int = 8, dtype=torch.float32, device=None,
                  use_pallas: bool = False, quant: str | None = None):
         super().__init__()
-        self.mlp = (nn.Sequential(nn.SiLU(), nn.Linear(time_emb_dim, dim_out * 2,
-                                                       device=device))
+        self.mlp = (nn.Sequential(nn.SiLU(), Linear(time_emb_dim, dim_out * 2,
+                                                    device=device))
                     if time_emb_dim is not None else None)
         self.block1 = Block(dim, dim_out, groups, dtype, device, use_pallas,
                             quant)

@@ -477,6 +477,23 @@ def load_calibration(path, net, meta: dict):
     return net
 
 
+def recorded_stats(net) -> dict:
+    """The recorded stats of ``net`` as float32 numpy arrays, keyed as
+    ``load_stats`` takes them: what a mesh's rank 0 sends the other ranks
+    after calibrating."""
+    out = {}
+    for name, m in quant_convs(net):
+        for s in _STATS:
+            for suffix in ('', '_t'):
+                v = getattr(m, f'{s}{suffix}')
+                if v is not None:
+                    out[f'{name}.{s}{suffix}'] = v.float().cpu().numpy()
+    times = getattr(net, STATS_TIMES, None)
+    if times is not None:
+        out[STATS_TIMES] = times.float().cpu().numpy()
+    return out
+
+
 def load_stats(net, stats: dict) -> None:
     """Replace the recorded stats of ``net`` with ``stats``: arrays keyed
     '<module name>.<buffer>' (``act_scale``, ``act_amax_ch`` and their

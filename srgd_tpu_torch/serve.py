@@ -25,8 +25,20 @@ their tiles into the tile minibatch; a seeded request re-seeds and runs
 alone (the reference's per-image re-seeding), and so does a guided one. One
 sample runs at a time; health stays answerable while it does.
 
-Port differences: ``--device`` (default cuda; cuda without a card raises)
-and ``--mesh``, which is not ported and raises, naming its ROADMAP item.
+``--mesh D,M`` serves from D x M ranks, one process per device
+(``parallel.mesh``): rank 0 owns the front-ends, the batcher and the
+health endpoints, and before each sample sends (conds, labels, seed,
+guidance) to the other ranks, which run a follower loop; every rank calls
+``Sampler.sample``, whose data ranks split the tile chunks. While the
+daemon idles, rank 0 sends a heartbeat every quarter of the process
+group's timeout, so no follower's wait for the next sample reaches it. A
+sample that one data rank fails is failed by all of them at one agreed
+point, and the mesh serves on; any other failure inside a sample leaves
+the ranks' collectives out of step, and the daemon stops with an error.
+SIGTERM drains rank 0, which then sends the followers a stop message.
+``/healthz`` and ``/stats`` report the mesh shape.
+
+Port differences: ``--device`` (default cuda; cuda without a card raises).
 ``--precision`` is bf16 by default, which clears a YAML's ``quantize``;
 ``--precision int8`` and the ``--quant*`` flags are the batch CLI's
 (``srgd_tpu_torch.infer``): the model is quantized, and calibrated with
@@ -49,7 +61,7 @@ import time
 import numpy as np
 
 from srgd_tpu_torch.diffusion.base import GeneratorNoise
-from srgd_tpu_torch.infer import add_quant_args
+from srgd_tpu_torch.infer import add_quant_args, log_config
 
 logger = logging.getLogger('srgd_tpu_torch.serve')
 
@@ -295,17 +307,22 @@ class Server:
     """The resident model and the counters that the front-ends share.
 
     ``noise_for_seed(seed, device)`` makes each sample's noise source
-    (default ``GeneratorNoise``: one generator per sample, never shared)."""
+    (default ``GeneratorNoise``: one generator per sample, never shared);
+    ``mesh``: this rank's ``parallel.mesh.Mesh`` under ``--mesh``."""
 
-    def __init__(self, args, noise_for_seed=GeneratorNoise):
+    mesh = None
+    out_of_step = None   # under a mesh: the error that left the ranks out
+                         # of step, after which the daemon stops
+
+    def __init__(self, args, noise_for_seed=GeneratorNoise, mesh=None):
         from srgd_tpu_torch.infer import build_sampler
-        self.args = args
+        self.args, self.mesh = args, mesh
         # the daemon has none of the batch CLI's kernel-set, matmul and
         # solver flags: it serves the default net
         sampler_args = argparse.Namespace(
             **vars(args), use_pallas=False, matmul_precision='default',
             use_dpmpp_solver=True)
-        self.sampler = build_sampler(sampler_args, noise_for_seed)
+        self.sampler = build_sampler(sampler_args, noise_for_seed, mesh=mesh)
         self.lock = threading.Lock()       # one sample in flight at a time
         self.stop = threading.Event()
         self.batcher = None
@@ -325,11 +342,20 @@ class Server:
         self.failed_inputs = {}   # filename -> consecutive failure count
         self.quarantined = {}     # filename -> poll index when quarantined
         self._poll_index = 0
+        # under a mesh, rank 0's heartbeat to the followers
+        self._closed = threading.Event()
+        self._beat = None
+        if mesh is not None and mesh.is_writer and \
+                mesh.shape[0] * mesh.shape[1] > 1:
+            self._beat = threading.Thread(target=self._heartbeat,
+                                          daemon=True)
+            self._beat.start()
         self.model_info = {
             'model': self.sampler.opts['model'],
             'num_sample_steps': args.num_sample_steps,
             'precision': args.precision, 'tile_size': args.tile_size,
             'lr_bucket': args.lr_bucket, 'device': str(self.sampler.device),
+            'mesh': None if mesh is None else list(mesh.shape),
         }
 
     def bump_error(self):
@@ -348,6 +374,7 @@ class Server:
         s['sample_inflight_seconds'] = round(self.sample_inflight_seconds(), 3)
         s['uptime_seconds'] = time.time() - s.pop('started')
         s['quarantined'] = len(self.quarantined)
+        s['mesh'] = self.model_info['mesh']
         if self.batcher is not None:
             s.update(self.batcher.stats)
         return s
@@ -357,14 +384,82 @@ class Server:
         """Every sample goes through here, under the model lock, with the
         in-flight clock that /healthz and /metrics read."""
         with self.lock:
+            if self.out_of_step is not None:
+                raise RuntimeError('the mesh is out of step; the daemon is '
+                                   'stopping') from self.out_of_step
             with self.stats_lock:
                 self._sample_started = time.time()
+            sent = self.mesh is None
             try:
+                if not sent:
+                    self._send(('sample', conds, labels, seed, guidance))
+                    sent = True
                 return self.sampler.sample(conds, labels, seed,
                                            guidance=guidance)
+            except Exception as e:
+                if self.mesh is not None and not (sent and self._in_step(e)):
+                    logger.error('mesh out of step after %r; stopping', e)
+                    self.out_of_step = e
+                    self.stop.set()
+                raise
             finally:
                 with self.stats_lock:
                     self._sample_started = None
+
+    # -- the mesh's other ranks -----------------------------------------
+    def _send(self, msg):
+        from srgd_tpu_torch.parallel.mesh import broadcast_object
+        return broadcast_object(msg, self.mesh)
+
+    def _in_step(self, error) -> bool:
+        """Whether the ranks' collectives are still in step after a sample
+        raised ``error``: it was raised by every data rank at one agreed
+        point, or the sample ran no collective (data axis 1)."""
+        from srgd_tpu_torch.parallel.mesh import MeshSampleError
+        return isinstance(error, MeshSampleError) or \
+            self.mesh.data_size == 1
+
+    def _heartbeat(self):
+        """Rank 0: a ping every quarter of the process group's timeout, so
+        a follower's wait for the next message never reaches it."""
+        while not self._closed.wait(self.mesh.timeout_s / 4):
+            with self.lock:
+                if not self._closed.is_set() and self.out_of_step is None:
+                    self._send(('ping',))
+
+    def follow(self):
+        """A rank other than 0: run every sample rank 0 announces, until
+        its stop message. A sample that fails in step with the other ranks
+        is logged; any other failure ends the rank (and the command)."""
+        while True:
+            msg = self._send(None)
+            if msg[0] == 'stop':
+                return
+            if msg[0] == 'ping':
+                continue
+            _, conds, labels, seed, guidance = msg
+            try:
+                self.sampler.sample(conds, labels, seed, guidance=guidance)
+            except Exception as e:
+                if not self._in_step(e):
+                    raise
+                logger.warning('sample failed on every rank: %r', e)
+
+    def close(self):
+        """Rank 0, once its front-ends have drained: the stop message, or,
+        when a failure left the ranks out of step, an error that ends the
+        command (the launcher then ends the other ranks)."""
+        if self.mesh is None or not self.mesh.is_writer:
+            return
+        self._closed.set()
+        with self.lock:
+            if self.out_of_step is None:
+                self._send(('stop',))
+        if self._beat is not None:
+            self._beat.join()
+        if self.out_of_step is not None:
+            raise RuntimeError('the mesh fell out of step') \
+                from self.out_of_step
 
     def _sample_batch(self, conds, labels):
         """(B, H, W, C) in [0, 1] -> (B, 4H, 4W, C): the coalesced and watch
@@ -649,13 +744,39 @@ class Server:
 
 
 def main(argv=None):
-    logging.basicConfig(level=logging.INFO,
-                        format='%(asctime)s %(name)s %(levelname)s %(message)s')
+    log_config()
     args = parse_args(argv)
     if args.mode in ('watch', 'both') and not (args.input_dir and args.output_dir):
         raise SystemExit('--mode watch requires --input_dir and --output_dir')
+    if args.mesh:
+        from srgd_tpu_torch.infer import resolve_device
+        from srgd_tpu_torch.parallel.mesh import launch, parse_shape
+        launch(_mesh_rank, parse_shape(args.mesh),
+               resolve_device(args.device).type, (args,))
+        return
+    serve(Server(args))
 
-    server = Server(args)
+
+def _mesh_rank(mesh, args):
+    """One rank of ``--mesh``: rank 0 serves, the others follow."""
+    log_config()
+    server = Server(args, mesh=mesh)
+    if not mesh.is_writer:
+        # rank 0 drains on a signal and then stops the followers
+        for s in (signal.SIGTERM, signal.SIGINT):
+            signal.signal(s, signal.SIG_IGN)
+        server.follow()
+        return
+    try:
+        serve(server)
+    finally:
+        server.close()
+
+
+def serve(server: Server) -> None:
+    """Run the front-ends ``--mode`` names until SIGTERM/SIGINT, then
+    drain."""
+    args = server.args
     if args.warmup_sizes:
         server.warmup()
 

@@ -2,13 +2,24 @@
 
 Counterpart of ``srgd_tpu/train/loop.py``: the training capability the
 reference's config describes (epochs/warmup/cosine/EMA/save_every_epoch/
-best-loss checkpointing), on one device: the card unless the caller asks
-for ``--device cpu``. Checkpoints hold {params, ema_params, opt_state, step,
-best_score} (``srgd_tpu_torch/checkpoint.py``) and a resumed run reproduces
-an uninterrupted one bit for bit.
+best-loss checkpointing), on the card unless the caller asks for ``--device
+cpu``. Checkpoints hold {params, ema_params, opt_state, step, best_score}
+(``srgd_tpu_torch/checkpoint.py``) and a resumed run reproduces an
+uninterrupted one bit for bit.
+
+``--mesh D,M`` trains over D x M ranks, one process per device
+(``parallel.mesh``, ``train.sharded``): ``batch_size`` is the global batch,
+split over the data axis, and the model axis shards the master copy, the
+optimizer state and the EMA of the weights JAX's rule shards. Without
+``--mesh`` a ``--device cuda`` run uses gcd(batch_size, visible GPUs) data
+ranks, as the JAX loop does; ``--device cuda:K`` trains on card K alone and
+a CPU run on one process. Rank 0 validates and writes the same single-file
+checkpoint a one-device run writes, which a one-device run or a mesh of any
+shape resumes.
 
 CLI: python -m srgd_tpu_torch.train.loop -c conf.yaml --data_dir D --out_dir D
-     [--steps N --log_every N --save_every N --val_dir D --device cuda|cpu]
+     [--steps N --log_every N --save_every N --val_dir D --mesh D,M
+      --device cuda|cuda:K|cpu]
 
 Exits 75 when a SIGTERM/SIGINT stopped the run before ``--steps``.
 """
@@ -144,6 +155,46 @@ class _DevicePrefetcher:
         self._stop.set()
 
 
+def ordered_batches(ds):
+    """``ds``'s batches in one sequence for its seed. The iterator of
+    ``train.data.DegradationDataset`` (the JAX package's, kept as it is)
+    queues its workers' batches in the order their threads finish them and
+    drops a batch its consumer is slow to take, so two runs of one seed, or
+    two ranks of a mesh, could train on different batches. Here each
+    worker's generator, seeded as that iterator seeds it (``seed * 1000 +
+    worker``), is taken in turn and each batch waits until it is taken. An
+    iterable without ``_make_batch`` (a stand-in) is iterated as it is."""
+    import itertools
+    import queue
+    import threading
+
+    make = getattr(ds, '_make_batch', None)
+    if make is None:
+        yield from ds
+        return
+    queues = [queue.Queue(maxsize=2) for _ in range(ds.num_workers)]
+    stop = threading.Event()
+
+    def worker(wid):
+        rng = np.random.default_rng(ds.seed * 1000 + wid)
+        while not stop.is_set():
+            batch = make(rng)
+            while not stop.is_set():
+                try:
+                    queues[wid].put(batch, timeout=1.0)
+                    break
+                except queue.Full:
+                    continue
+
+    for w in range(ds.num_workers):
+        threading.Thread(target=worker, args=(w,), daemon=True).start()
+    try:
+        for q in itertools.cycle(queues):
+            yield q.get()
+    finally:
+        stop.set()
+
+
 def _conf_scale(conf) -> int:
     """SR factor from the config's image-size pair (config.py:80-83): the
     degradation pipeline downsamples HR crops by hr_image_size /
@@ -254,26 +305,52 @@ def _init_weights(net, log_snr, conf) -> None:
         log_snr.init_weights(gen)
 
 
-def _cpu(obj):
-    """A copy of ``obj`` with every tensor on the CPU."""
-    if isinstance(obj, torch.Tensor):
-        return obj.detach().cpu().clone()
-    if isinstance(obj, dict):
-        return {k: _cpu(v) for k, v in obj.items()}
-    if isinstance(obj, (list, tuple)):
-        return type(obj)(_cpu(v) for v in obj)
-    return obj
-
-
 def train(conf, data_dir: str, out_dir: str, total_steps: int = 1000,
           log_every: int = 50, save_every: int = 500, mesh_shape=None,
           resume: bool = True, val_dir: str = None, device='cuda'):
     """Train for ``total_steps`` steps (resuming from ``out_dir`` when a
-    checkpoint is there) and return the ``TrainState``."""
+    checkpoint is there) and return the ``TrainState``: on one device, the
+    live one; under a mesh, rank 0's, with whole parameters and EMA on the
+    CPU and no optimizer (its whole state is in the checkpoint the run
+    ends with). ``device`` 'cuda' without ``mesh_shape`` trains over
+    gcd(batch, visible GPUs) data ranks; 'cuda:K' on card K alone."""
     from srgd_tpu_torch.infer import resolve_device
+    from srgd_tpu_torch.parallel.mesh import launch
     device = resolve_device(device)
+    n_devices = None
+    if mesh_shape is None and device.type == 'cuda' and device.index is None:
+        dp = math.gcd(conf.batch_size, torch.cuda.device_count())
+        if dp > 1:
+            mesh_shape, n_devices = (dp, 1), dp
+    run = (conf, data_dir, out_dir, total_steps, log_every, save_every,
+           resume, val_dir)
+    if mesh_shape is None:
+        return train_on(None, *run, device)
+    return launch(_train_rank, tuple(mesh_shape), device.type, (run,),
+                  n_devices=n_devices)
+
+
+def _train_rank(mesh, run):
+    """One rank of a mesh run: its state with whole tensors on the CPU
+    (every rank gathers its shards) and no optimizer."""
+    from srgd_tpu_torch.train.sharded import full_state
+    from srgd_tpu_torch.train.trainer import TrainState
+    if not mesh.is_writer:
+        logger.setLevel(logging.WARNING)
+    state = train_on(mesh, *run, mesh.device)
+    return TrainState(params=full_state(state.params), optimizer=None,
+                      ema_params=full_state(state.ema_params),
+                      step=state.step, losses=state.losses, timer=state.timer)
+
+
+def train_on(mesh, conf, data_dir, out_dir, total_steps, log_every,
+             save_every, resume, val_dir, device):
+    """``train``'s body on one device, or on this rank of ``mesh`` (None:
+    one device, whatever the card count)."""
     conditional = 'conditional' in conf.model
-    if conf.log_dir:
+    args = (conf, data_dir, out_dir, total_steps, log_every, save_every,
+            mesh, resume, val_dir, conditional, device)
+    if conf.log_dir and (mesh is None or mesh.is_writer):
         # the reference trainer logs under log_dir; a plain-text run log
         # alongside stdout. A relative log_dir lands inside out_dir.
         ldir = (conf.log_dir if os.path.isabs(conf.log_dir)
@@ -285,19 +362,15 @@ def train(conf, data_dir: str, out_dir: str, total_steps: int = 1000,
         if logger.getEffectiveLevel() > logging.INFO:
             logger.setLevel(logging.INFO)  # progress lines reach the file
         try:
-            return _train_inner(conf, data_dir, out_dir, total_steps,
-                                log_every, save_every, mesh_shape, resume,
-                                val_dir, conditional, device)
+            return _train_inner(*args)
         finally:
             logger.removeHandler(fh)
             fh.close()
-    return _train_inner(conf, data_dir, out_dir, total_steps, log_every,
-                        save_every, mesh_shape, resume, val_dir, conditional,
-                        device)
+    return _train_inner(*args)
 
 
 def _train_inner(conf, data_dir, out_dir, total_steps, log_every, save_every,
-                 mesh_shape, resume, val_dir, conditional, device):
+                 mesh, resume, val_dir, conditional, device):
     from srgd_tpu_torch.checkpoint import (
         checkpoint_exists, copy_checkpoint, restore_params, save_params)
     from srgd_tpu_torch.diffusion.schedules import LearnedLogSNR
@@ -305,6 +378,8 @@ def _train_inner(conf, data_dir, out_dir, total_steps, log_every, save_every,
     from srgd_tpu_torch.nn.unet import build_unet_from_config
     from srgd_tpu_torch.train import data as data_mod
     from srgd_tpu_torch.train import native
+    from srgd_tpu_torch.train.sharded import (
+        MeshParams, full_state, local_rows)
     from srgd_tpu_torch.train.trainer import (
         create_train_state, make_optimizer, make_train_step,
         trainable_params)
@@ -325,11 +400,7 @@ def _train_inner(conf, data_dir, out_dir, total_steps, log_every, save_every,
             'val_realsrv3/val_drealsr require the RealSR-V3/DRealSR '
             'benchmark datasets, which cannot be downloaded here; place a '
             'local copy and point --val_dir at it instead')
-    if mesh_shape and math.prod(mesh_shape) > 1:
-        raise NotImplementedError(
-            f'--mesh {",".join(map(str, mesh_shape))}: training on more than '
-            'one device is not ported to srgd_tpu_torch yet (ROADMAP.md '
-            'Queue 1 item 15)')
+    rows = None if mesh is None else local_rows(conf.batch_size, mesh)
     if conf.amp and conf.compute_dtype == 'float32':
         # the reference trainer autocasts under amp/amp_dtype; here, as in
         # the JAX package, bfloat16 compute over float32 master parameters
@@ -368,8 +439,14 @@ def _train_inner(conf, data_dir, out_dir, total_steps, log_every, save_every,
     _init_weights(net, log_snr, conf)
     params = trainable_params(wrapper)
     n_params = sum(p.numel() for p in params.values())
-    logger.info('model %s: %.1fM params on %s', conf.model, n_params / 1e6,
-                device)
+    logger.info('model %s: %.1fM params on %s%s', conf.model, n_params / 1e6,
+                device, '' if mesh is None else f', mesh {mesh.shape}')
+    mesh_params = None
+    if mesh is not None:
+        # the optimizer and the EMA take the masters: dim-0 shards over the
+        # model axis where param_spec shards, the modules' own elsewhere
+        mesh_params = MeshParams(params, mesh)
+        params = mesh_params.master
 
     steps_per_epoch = max(total_steps // max(conf.epochs, 1), 1)
     optimizer = make_optimizer(conf, params, steps_per_epoch=steps_per_epoch)
@@ -383,12 +460,19 @@ def _train_inner(conf, data_dir, out_dir, total_steps, log_every, save_every,
     best_score = -float(np.inf)
     if resume and checkpoint_exists(ckpt_dir):
         raw = restore_params(ckpt_dir)
-        _load_into(state.params, raw['params'])
-        with torch.no_grad():
-            for name, e in state.ema_params.items():
-                e.copy_(raw['ema_params'][name])
-        if 'opt_state' in raw:
-            optimizer.load_state_dict(raw['opt_state'])
+        opt_state = raw.get('opt_state')
+        if mesh_params is not None:
+            # a one-device checkpoint, re-sharded for this mesh
+            mesh_params.load_full(raw['params'], state.ema_params,
+                                  raw['ema_params'], optimizer, opt_state)
+        else:
+            _load_into(state.params, raw['params'])
+            with torch.no_grad():
+                for name, e in state.ema_params.items():
+                    e.copy_(raw['ema_params'][name])
+            if opt_state is not None:
+                optimizer.load_state_dict(opt_state)
+        if opt_state is not None:
             best_score = float(raw.get('best_score', -np.inf))
         else:  # a checkpoint without optimizer state
             logger.warning('checkpoint has no opt_state; Adam moments reset')
@@ -396,13 +480,33 @@ def _train_inner(conf, data_dir, out_dir, total_steps, log_every, save_every,
         logger.info('resumed from %s at step %d, best_score %r', ckpt_dir,
                     state.step, best_score)
 
-    step_fn = make_train_step(wrapper, conf.ema_decay, conditional, conf.seed)
+    step_fn = make_train_step(wrapper, conf.ema_decay, conditional, conf.seed,
+                              mesh_params=mesh_params)
+    writer = mesh is None or mesh.is_writer
 
     def save_state(path, step):
-        save_params(path, {
-            'params': _cpu(state.params), 'ema_params': _cpu(state.ema_params),
-            'opt_state': _cpu(optimizer.state_dict()),
-            'step': step, 'best_score': best_score})
+        # whole tensors: the ranks holding shards gather them, rank 0 writes
+        if not writer and not (mesh_params and mesh_params.sharded):
+            return
+        item = {'params': full_state(state.params),
+                'ema_params': full_state(state.ema_params),
+                'opt_state': full_state(optimizer.state_dict()),
+                'step': step, 'best_score': best_score}
+        if writer:
+            save_params(path, item)
+
+    def stopping():
+        """Whether any rank was asked to stop (SIGTERM/SIGINT)."""
+        if mesh is None:
+            return stop.triggered
+        flag = torch.tensor([float(stop.triggered)], device=device)
+        torch.distributed.all_reduce(flag, torch.distributed.ReduceOp.MAX)
+        return bool(flag.item())
+
+    batches = ordered_batches(ds)
+    if rows is not None:
+        # every rank runs the same seeded pipeline and keeps its rows
+        batches = (tuple(a[rows] for a in batch) for batch in batches)
 
     os.makedirs(out_dir, exist_ok=True)
     losses = state.losses
@@ -412,9 +516,13 @@ def _train_inner(conf, data_dir, out_dir, total_steps, log_every, save_every,
     last_milestone = state.step // milestone if milestone > 0 else 0
     timer = state.timer = PhaseTimer()
     t0 = time.time()
-    it = _DevicePrefetcher(iter(ds), device)
+    it = _DevicePrefetcher(batches, device)
+    stopped = False
     with _GracefulStop() as stop, _closing(it):
-        while not stop.triggered and state.step < total_steps:
+        while state.step < total_steps:
+            stopped = stopping()
+            if stopped:
+                break
             with timer.phase('data'):
                 hr, cond, label = next(it)
             with timer.phase('step'):
@@ -443,24 +551,33 @@ def _train_inner(conf, data_dir, out_dir, total_steps, log_every, save_every,
                     score = -float(np.mean(losses[-log_every:]))
                 elif vdir and not conf.skip_val:
                     with timer.phase('val'):
-                        m = validate(conf, wrapper, state.ema_params, vdir,
-                                     (conf.seed << 32) + step,
-                                     num_images=conf.sample_size,
-                                     lpips_params=lpips_params,
-                                     sample_dir=os.path.join(out_dir,
-                                                             'val_samples'),
-                                     step=step, fold_role=vrole)
-                    logger.info('val @%d: %s', step,
-                                '  '.join(f'{k} {v:.4f}' for k, v in m.items()))
-                    score = {'best_psnr': m['psnr'], 'best_ssim': m['ssim'],
-                             'best_lpips': -m.get('lpips', np.inf)}[target]
+                        ema = (state.ema_params if mesh is None
+                               else full_state(state.ema_params))
+                        if writer:
+                            m = validate(conf, wrapper, ema, vdir,
+                                         (conf.seed << 32) + step,
+                                         num_images=conf.sample_size,
+                                         lpips_params=lpips_params,
+                                         sample_dir=os.path.join(
+                                             out_dir, 'val_samples'),
+                                         step=step, fold_role=vrole)
+                            logger.info('val @%d: %s', step, '  '.join(
+                                f'{k} {v:.4f}' for k, v in m.items()))
+                            score = {'best_psnr': m['psnr'],
+                                     'best_ssim': m['ssim'],
+                                     'best_lpips': -m.get('lpips', np.inf)
+                                     }[target]
+                        if mesh is not None:
+                            from srgd_tpu_torch.parallel.mesh import (
+                                broadcast_object)
+                            score = broadcast_object(score, mesh)
                 improved = score is not None and score > best_score
                 if improved:
                     best_score = score
                 with timer.phase('save'):
                     save_state(ckpt_dir, step)
                 logger.info('saved checkpoint at step %d -> %s', step, ckpt_dir)
-                if improved:
+                if improved and writer:
                     with timer.phase('save_best'):
                         copy_checkpoint(ckpt_dir, os.path.join(
                             out_dir, f'{conf.prefix or "ckpt"}_{target}'))
@@ -470,11 +587,13 @@ def _train_inner(conf, data_dir, out_dir, total_steps, log_every, save_every,
                 if milestone > 0 and step // milestone > last_milestone:
                     last_milestone = step // milestone
                     with timer.phase('save_milestone'):
-                        copy_checkpoint(ckpt_dir, f'{ckpt_dir}_step{step}')
+                        if writer:
+                            copy_checkpoint(ckpt_dir,
+                                            f'{ckpt_dir}_step{step}')
                     logger.info('milestone snapshot -> %s_step%d',
                                 ckpt_dir, step)
     step = state.step
-    if stop.triggered and step % save_every != 0 and step < total_steps:
+    if stopped and step % save_every != 0 and step < total_steps:
         # signal arrived between periodic saves: persist the stint's tail
         # so the next run resumes from here instead of the last save_every
         save_state(ckpt_dir, step)
@@ -499,7 +618,9 @@ def parse_args(argv=None):
     p.add_argument('--mesh', type=str, default='')
     p.add_argument('--val_dir', type=str, default='')
     p.add_argument('--device', type=str, default='cuda',
-                   help="torch device to train on: 'cuda' (default) or 'cpu'")
+                   help="'cuda' (default: every visible card, as "
+                        "gcd(batch_size, cards) data ranks without --mesh), "
+                        "'cuda:K' (card K alone) or 'cpu'")
     return p.parse_args(argv)
 
 
@@ -511,7 +632,8 @@ def main(argv=None):
     conf = load_config(args.conf)
     out_dir = args.out_dir or os.path.join(conf.model_dir, conf.save_dir)
     data_dir = args.data_dir or os.path.join(conf.base_dir, conf.dataset_name)
-    mesh_shape = tuple(int(x) for x in args.mesh.split(',')) if args.mesh else None
+    from srgd_tpu_torch.parallel.mesh import parse_shape
+    mesh_shape = parse_shape(args.mesh)
     state = train(conf, data_dir, out_dir, total_steps=args.steps,
                   log_every=args.log_every, save_every=args.save_every,
                   mesh_shape=mesh_shape, val_dir=args.val_dir or None,

@@ -328,9 +328,9 @@ class TrainState:
     """``params``: the live parameters (the modules' own tensors) by name;
     ``ema_params``: float32 copies; ``step``: steps taken. The training
     loop also leaves the losses of the steps it ran and its ``PhaseTimer``
-    here."""
+    here. A mesh run returns whole CPU copies and ``optimizer`` None."""
     params: dict
-    optimizer: Transform
+    optimizer: Transform | None
     ema_params: dict
     step: int = 0
     losses: list = field(default_factory=list)
@@ -354,12 +354,20 @@ def step_draws(seed: int, step: int, device) -> GeneratorDraws:
     return GeneratorDraws((seed << 32) + step, device)
 
 
-def make_train_step(wrapper, ema_decay: float, conditional: bool, seed: int):
+def make_train_step(wrapper, ema_decay: float, conditional: bool, seed: int,
+                    mesh_params=None):
     """Returns ``step(state, hr, lr_cond, label=None) -> loss``: uint8
     batches normalised on the device, the step's draws keyed by the step,
     loss, backward, the optimizer step (value = loss for the plateau), then
     the EMA; ``state`` is updated in place and the loss comes back as a
-    device tensor."""
+    device tensor.
+
+    With ``mesh_params`` (``train.sharded.MeshParams``) the batch is this
+    rank's rows of the global batch: the draws are made at the global shape
+    and cut to those rows, the gradients and the loss are averaged over the
+    mesh before the optimizer steps on the masters, and the updated shards
+    are gathered back into the modules; the loss returned is the global
+    one."""
 
     def step(state: TrainState, hr, lr_cond, label=None):
         if hr.dtype == torch.uint8:
@@ -368,13 +376,25 @@ def make_train_step(wrapper, ema_decay: float, conditional: bool, seed: int):
             lr_cond = lr_cond.float() / 255.0
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
+        draws = step_draws(seed, state.step, hr.device)
+        if mesh_params is not None:
+            from srgd_tpu_torch.train.sharded import RowDraws, local_rows
+            b = hr.shape[0] * mesh_params.mesh.data_size
+            draws = RowDraws(draws, b, local_rows(b, mesh_params.mesh))
+            for p in mesh_params.live.values():
+                p.grad = None
         loss = wrapper.loss(hr, lr_cond, label if conditional else None,
-                            draws=step_draws(seed, state.step, hr.device))
+                            draws=draws)
         loss.backward()
+        loss = loss.detach()
+        if mesh_params is not None:
+            loss = mesh_params.reduce(loss)
         set_lr(opt, state.step)
-        opt.step(value=loss.detach())
+        opt.step(value=loss)
+        if mesh_params is not None:
+            mesh_params.gather()
         ema_update(state.ema_params, state.params, ema_decay)
         state.step += 1
-        return loss.detach()
+        return loss
 
     return step

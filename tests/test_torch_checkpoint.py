@@ -127,6 +127,129 @@ def test_load_reference_checkpoint_rejects_unported(tmp_path, jax_params):
                                 for k, v in schedule_sd.items()}}.items():
         torch.testing.assert_close(from_jax[k], v, atol=0, rtol=0)
 
+    # an entry outside the U-Net is left out, as the JAX converter returns
+    # it among its extras, whatever load_strict says
     _save(tmp_path / 'extra.pth', dict(exported, stray=np.zeros(1, np.float32)))
-    with pytest.raises(KeyError, match='stray'):
-        load_reference_checkpoint(tmp_path / 'extra.pth')
+    extra = load_reference_checkpoint(tmp_path / 'extra.pth')
+    assert 'stray' not in extra
+    assert sorted(extra) == sorted(load_reference_checkpoint(
+        tmp_path / 'learned.pth'))
+
+
+# ---------------------------------------------------------------------------
+# param_dtype and load_strict through both packages' get_model
+# ---------------------------------------------------------------------------
+
+FACTORY_YAML = """
+model: conditional_continuous
+noise_schedule: linear
+unet_dim: 16
+ddpm_unet_dim_mults: '1,2'
+full_attn: 'False,True'
+learned_sinusoidal_cond: true
+learned_sinusoidal_dim: 8
+num_classes: 3
+"""
+BF16_RTOL = 2e-2   # chip_smoke's: max|a - b| <= 2e-2 * max|b|
+
+
+def _confs(tmp_path, **over):
+    from srgd_tpu.config import load_config as jax_load_config
+    from srgd_tpu_torch.config import load_config
+    path = tmp_path / 'f.yaml'
+    path.write_text(FACTORY_YAML + ''.join(f'{k}: {v}\n'
+                                           for k, v in over.items()))
+    return jax_load_config(str(path)), load_config(str(path))
+
+
+def _forward_both(jconf, tconf, ckpt, seed=0):
+    """The same seeded inputs through JAX's get_model -> apply and the
+    port's get_model forward; (jax out, port out, port net)."""
+    from srgd_tpu.factory import get_model as jax_get_model
+    from srgd_tpu_torch.factory import get_model
+    _, jnet, params = jax_get_model(jconf, str(ckpt))
+    _, net = get_model(tconf, str(ckpt), device='cpu')
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(2, 16, 16, 3)).astype(np.float32)
+    cond = rng.normal(size=(2, 16, 16, 3)).astype(np.float32)
+    t = rng.uniform(-5, 5, size=(2,)).astype(np.float32)
+    label = np.array([0, 2], np.int32)
+    want = np.asarray(jnet.apply({'params': params['params']}, x, t,
+                                 cond=cond, class_label=label), np.float32)
+    nchw = lambda a: torch.from_numpy(a).permute(0, 3, 1, 2)  # noqa: E731
+    with torch.inference_mode():
+        got = net(nchw(x), torch.from_numpy(t), cond=nchw(cond),
+                  class_label=torch.from_numpy(label.astype(np.int64)))
+    return want, got.float().permute(0, 2, 3, 1).numpy(), net
+
+
+@pytest.mark.parametrize('compute_dtype', ['float32', 'bfloat16'])
+def test_param_dtype_bfloat16_matches_jax(tmp_path, jax_params, compute_dtype):
+    """param_dtype: bfloat16 stores every parameter in bf16 (half the
+    float32 net's bytes) and the forward equals JAX's load_params -> apply
+    on the same .pth: f32 atol 1e-4 in float32 compute, chip_smoke's bf16
+    tolerance in bfloat16."""
+    _, params = jax_params
+    path = tmp_path / 'ref.pth'
+    _save(path, export_torch_state_dict({'params': params},
+                                        model='conditional_continuous'))
+    jconf, tconf = _confs(tmp_path, param_dtype='bfloat16',
+                          compute_dtype=compute_dtype)
+    want, got, net = _forward_both(jconf, tconf, path)
+    assert all(p.dtype == torch.bfloat16 for p in net.parameters())
+    f32 = _confs(tmp_path, compute_dtype=compute_dtype)[1]
+    from srgd_tpu_torch.factory import get_model
+    _, net32 = get_model(f32, str(path), device='cpu')
+    nbytes = lambda m: sum(p.numel() * p.element_size()  # noqa: E731
+                           for p in m.parameters())
+    assert 2 * nbytes(net) == nbytes(net32)
+    err = np.abs(got - want).max()
+    if compute_dtype == 'float32':
+        assert err < 1e-4, err
+    else:
+        assert err <= BF16_RTOL * np.abs(want).max(), err
+
+
+def test_param_dtype_bfloat16_casts_the_learned_schedule(tmp_path):
+    """The learned log-SNR net's parameters are bf16 too, and its table
+    equals the float32 schedule rounded through bf16."""
+    from srgd_tpu_torch.factory import get_model
+    confs = [_confs(tmp_path, noise_schedule='learned',
+                    learned_schedule_net_hidden_dim=16,
+                    param_dtype=dt)[1] for dt in ('float32', 'bfloat16')]
+    (w32, _), (w16, _) = (get_model(c, '', device='cpu') for c in confs)
+    assert all(p.dtype == torch.bfloat16 for p in w16.log_snr.parameters())
+    with torch.no_grad():
+        for a, b in zip(w32.log_snr.parameters(), w16.log_snr.parameters()):
+            a.copy_(a.to(torch.bfloat16).float())
+    np.testing.assert_allclose(w16.log_snr.table(4), w32.log_snr.table(4),
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize('strict', [True, False])
+def test_load_strict_raises_where_jax_raises(tmp_path, jax_params, strict):
+    """A .pth with one extra wrapper entry and one extra U-Net key: with
+    load_strict both packages raise on the U-Net key and neither on the
+    wrapper entry; without it both load and give the same forward."""
+    from srgd_tpu.factory import get_model as jax_get_model
+    from srgd_tpu_torch.factory import get_model
+    _, params = jax_params
+    sd = export_torch_state_dict({'params': params},
+                                 model='conditional_continuous')
+    wrapper_only = tmp_path / 'wrapper.pth'
+    _save(wrapper_only, dict(sd, step=np.zeros(1, np.float32)))
+    both = tmp_path / 'both.pth'
+    _save(both, dict(sd, step=np.zeros(1, np.float32),
+                     **{'model.stray.weight': np.ones(3, np.float32)}))
+    jconf, tconf = _confs(tmp_path, load_strict=str(strict).lower())
+    assert jconf.load_strict is strict and tconf.load_strict is strict
+    want, got, _ = _forward_both(jconf, tconf, wrapper_only)
+    assert np.abs(got - want).max() < 1e-4
+    if strict:
+        with pytest.raises(KeyError, match='stray'):
+            jax_get_model(jconf, str(both))
+        with pytest.raises(KeyError, match='stray'):
+            get_model(tconf, str(both), device='cpu')
+    else:
+        want, got, _ = _forward_both(jconf, tconf, both)
+        assert np.abs(got - want).max() < 1e-4

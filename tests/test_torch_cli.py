@@ -119,16 +119,18 @@ def test_port_cli_matches_jax_cli(setup):
         assert np.abs(got - want).max() <= 1
 
 
-@pytest.mark.parametrize('extra, item', [
-    (['--mesh', '1,1'], 'Queue 1 item 15'),
-])
-def test_unported_flags_raise(setup, extra, item):
+@pytest.mark.parametrize('extra', [['--mesh', '1,1']])
+def test_unported_flags_raise(setup, extra):
+    """The flags the port once refused now run: ``--mesh 1,1`` on the CPU
+    (a one-rank gloo mesh in this process, its chunks all-gathered at
+    world 1) writes the PNGs of the run without it, byte for byte."""
     conf, ckpt, in_dir, root = setup
-    args = tinfer.parse_args(_argv(conf, ckpt, in_dir, root / 'never',
-                                   ['--device', 'cpu', *extra]))
-    with pytest.raises(NotImplementedError, match=item):
-        tinfer.build_sampler(args)
-    assert not (root / 'never').exists()
+    plain, meshed = root / 'flags_plain', root / 'flags_mesh'
+    tinfer.main(_argv(conf, ckpt, in_dir, plain, ['--device', 'cpu']))
+    tinfer.main(_argv(conf, ckpt, in_dir, meshed,
+                      ['--device', 'cpu', *extra]))
+    for name in ('a_out.png', 'b_out.png'):
+        assert (meshed / name).read_bytes() == (plain / name).read_bytes()
 
 
 def test_cuda_device_without_card_raises(setup, monkeypatch):

@@ -57,6 +57,10 @@ int8 = chip_smoke.phase_int8(torch, cpu, conf=sys.argv[3], min_channels=32,
                              batch_size=4, tile_size=32, cal_batch=2,
                              cli_size=10, cli_steps=2, serve_size=8,
                              serve_steps=2, iters=1, forward_iters=1)
+mesh = chip_smoke.phase_mesh(torch, cpu, size=40, tile_size=32, steps=2,
+                             batch_size=4, train_conf=sys.argv[2], images=4,
+                             image_size=40, cli_conf=sys.argv[1], cli_size=10,
+                             **net)
 bench = chip_smoke.phase_bench(torch, cpu, lr_size=10, tile_size=32,
                                batch_size=4, forward_iters=1, **net)
 profile = chip_smoke.phase_profile(torch, cpu, tile_size=32, batch_size=2,
@@ -82,16 +86,16 @@ print(json.dumps({
     'smoke_imported': smoke_imported, 'port_imported': foreign(),
     'sampler': [type(sampler.wrapper).__name__, sampler.wrapper.sampler],
     'ok': [kernels['ok'], slice_['ok'], slice_pallas['ok'], deep_cache['ok'],
-           families['ok'], serve['ok'], train['ok'], int8['ok'], bench['ok'],
-           profile['ok']],
+           families['ok'], serve['ok'], train['ok'], int8['ok'], mesh['ok'],
+           bench['ok'], profile['ok']],
     'slice': slice_, 'slice_pallas': slice_pallas, 'bench': bench,
     'deep_cache': deep_cache, 'families': families, 'serve': serve,
-    'train': train, 'int8': int8,
+    'train': train, 'int8': int8, 'mesh': mesh,
     'kernel_cases': [[c['kernel'], c['b'], c.get('film'), c['dtype'], c['n'],
                       c['bitwise_repeat']] for c in kernels['cases']],
     'profile': profile,
     'summary': chip_smoke.summary(kernels, slice_, slice_pallas, deep_cache,
-                                  families, serve, train, int8)}))
+                                  families, serve, train, int8, mesh)}))
 """
 
 TINY_YAML = """
@@ -155,7 +159,7 @@ def test_port_and_chip_smoke_phases_import_no_jax(rehearsal):
     assert rep['smoke_imported'] == [], rep['smoke_imported']
     assert rep['port_imported'] == [], rep['port_imported']
     assert rep['sampler'] == ['ContinuousDiffusion', 'dpmpp']
-    assert rep['ok'] == [True] * 10
+    assert rep['ok'] == [True] * 11
     s = rep['slice']
     # downs_0_2 and ups_1_2 are linear; downs_1_2, mid_attn and ups_0_2 full
     assert s['forwards'] > 0
@@ -265,6 +269,32 @@ def test_rehearsed_train_phase_trains_resumes_and_checks(rehearsal):
     cases = {(c['kernel'], c['dtype']) for c in tr['grad_cases']}
     assert cases == {(k, d) for k in ('linattn_block', 'attn_block')
                      for d in ('bfloat16', 'float32')}
+
+
+def test_rehearsed_mesh_phase_samples_trains_and_runs_the_cli(rehearsal):
+    """The mesh phase at world 1 on the CPU (one gloo rank in the process):
+    the mesh sampler gives the plain sampler's bits with the slice's
+    per-forward routing, a mesh train step and its resume give one
+    device's losses, first moment and parameters bit for bit, the
+    ``--mesh 1,1`` CLI writes its PNG, and the ``--mesh 1,1`` daemon
+    answers a request and exits 0 on SIGTERM."""
+    m = rehearsal['mesh']
+    assert (m['world'], m['shape']) == (1, [1, 1])
+    assert m['bit_equal'] and m['max_abs_diff'] == 0.0
+    assert m['checks']['sample_bit_equal_to_plain']
+    assert (m['per_forward']['linattn_block'],
+            m['per_forward']['attn_block']) == (2, 3)
+    assert m['forwards'] > 0 and set(m['launches'].values()) == {0}
+    assert m['ms_per_step_plain'] > 0 and m['ms_per_step_mesh'] > 0
+    assert m['train_losses_bit_equal'] and m['train_params_bit_equal']
+    assert len(m['train_losses']['mesh']) == 2
+    first = m['train']['bfloat16']
+    assert (first['mu_rel_l2'], first['param_max_abs'],
+            first['param_bf16_casts_changed']) == (0.0, 0.0, 0)
+    assert all(v for k, v in m['checks'].items() if k.startswith('train_'))
+    assert m['checks']['cli_exit'] and m['checks']['cli_png']
+    assert all(m['checks'][k] for k in ('serve_health_mesh', 'serve_png',
+                                        'serve_exit'))
 
 
 def test_train_on_cuda_without_a_card_raises(monkeypatch, tmp_path):
@@ -431,6 +461,8 @@ def test_port_sources_import_nothing_of_jax_or_the_jax_package():
     banned = {'jax', 'jaxlib', 'flax', 'srgd_tpu'}
     files = _port_sources()
     assert len(files) > 15
+    # the mesh package too
+    assert os.path.join(REPO, 'srgd_tpu_torch', 'parallel', 'mesh.py') in files
     for path in files:
         with open(path) as fp:
             tree = ast.parse(fp.read(), path)

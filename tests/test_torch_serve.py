@@ -507,16 +507,30 @@ def test_coalesced_super_resolve_end_to_end(server):
         server.batcher = None
 
 
-@pytest.mark.parametrize('extra, item', [
-    (['--mesh', '1,1'], 'item 15'),
-])
-def test_server_int8_precision_raises(conf, extra, item):
-    """The JAX daemon's mesh flag is not ported: it raises and names its
-    ROADMAP item, and only when the user sets it."""
-    args = parse_args(['-c', str(conf), '-m', '', '--mode', 'http',
-                       '--device', 'cpu', *SAMPLING, *extra])
-    with pytest.raises(NotImplementedError, match=item):
-        Server(args)
+@pytest.mark.parametrize('extra', [['--mesh', '1,1']])
+def test_server_int8_precision_raises(conf, extra):
+    """The JAX daemon's mesh flag, once refused, now serves: a ``Server``
+    on a one-rank gloo mesh (in this process) reports the mesh in its
+    health fields and gives the PNG of the daemon without it for a seeded
+    request."""
+    from srgd_tpu_torch.parallel.mesh import launch
+
+    def serve(mesh, args):
+        server = Server(args, mesh=mesh)
+        try:
+            return server.model_info['mesh'], np.asarray(server.super_resolve(
+                _rand_image(3, 12, 10), seed=5, test_label=1))
+        finally:
+            server.close()
+
+    argv = ['-c', str(conf), '-m', '', '--mode', 'http', '--device', 'cpu',
+            *SAMPLING]
+    want = np.asarray(Server(parse_args(argv)).super_resolve(
+        _rand_image(3, 12, 10), seed=5, test_label=1))
+    args = parse_args(argv + extra)
+    shape, got = launch(serve, (1, 1), 'cpu', (args,))
+    assert shape == [1, 1]
+    np.testing.assert_array_equal(got, want)
 
 
 def test_server_fast_sampler_flags(conf):

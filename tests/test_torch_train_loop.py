@@ -292,7 +292,31 @@ def test_dataset_honors_size_and_fold_knobs(image_dir):
     assert cond.shape == (2, 32, 32, 3)
 
 
-def test_train_rejects_bad_task_valsets_and_sizes(tmp_path):
+def test_ordered_batches_give_one_sequence(image_dir):
+    """The training loop takes three data workers' batches in turn,
+    whatever the threads' timing: two iterations give the same batches,
+    those of each worker's seeded generator taken round-robin, so two runs
+    of one seed and every rank of a mesh see the same global batches; a
+    stand-in iterable passes through."""
+    from srgd_tpu_torch.train.data import DegradationDataset
+    from srgd_tpu_torch.train.loop import ordered_batches
+    ds = DegradationDataset(str(image_dir), crop_size=32, batch_size=2,
+                            num_workers=3, seed=2)
+    runs = []
+    for _ in range(2):
+        it = ordered_batches(ds)
+        runs.append([next(it) for _ in range(6)])
+        it.close()
+    rngs = [np.random.default_rng(2 * 1000 + w) for w in range(3)]
+    want = [ds._make_batch(rngs[k % 3]) for k in range(6)]
+    for got in runs:
+        for g, w in zip(got, want):
+            for a, b in zip(g, w):
+                np.testing.assert_array_equal(a, b)
+    assert list(ordered_batches([1, 2])) == [1, 2]
+
+
+def test_train_rejects_bad_task_valsets_and_sizes(tmp_path, image_dir):
     with pytest.raises(ValueError, match='conditional_task_type'):
         _train(_conf(**{**TINY, 'conditional_task_type': 'faces'}),
                'unused', tmp_path / 'a')
@@ -303,9 +327,10 @@ def test_train_rejects_bad_task_valsets_and_sizes(tmp_path):
     with pytest.raises(ValueError, match='integer multiple'):
         _train(_conf(**{**TINY, 'lr_image_size': 7}), 'unused',
                tmp_path / 'd')
-    # more than one device is Queue 1 item 15; one is the default
-    with pytest.raises(NotImplementedError, match='item 15'):
-        _train(_conf(**TINY), 'unused', tmp_path / 'e', mesh_shape=(2, 1))
+    # a one-rank mesh trains (the gloo mesh path at world 1)
+    state = _train(_conf(**RUN), image_dir, tmp_path / 'e', total_steps=1,
+                   log_every=1, save_every=1, mesh_shape=(1, 1))
+    assert state.step == 1 and np.isfinite(state.losses[0])
 
 
 def test_ema_update():
