@@ -120,10 +120,28 @@ Phases, each printed as one JSON line:
    and exiting 0 on SIGTERM. On a
    machine of more cards only this phase uses them: the others run on
    card 0 (``train`` with ``--device cuda:0``).
-12. bench: one U-Net forward (b = 8 tiles of 256 px) and one even and one odd
+12. quality: the evaluation entry points (``srgd_tpu_torch.tools``) at full
+   width. (a) ``quality_probe.main`` at QP_LR 128 (a 512 canvas), 4 steps,
+   QP_QMIN 0, in float32, bfloat16, w8a8dyn, w8a8 and bfloat16+dc2.2 on
+   seeded random weights: every output finite, in [0, 1], of the right
+   shape, every line parsed, every forward launching what its net routes
+   to (6 / 3 in float32 as in bf16, 4 / 0 cached; the w8a8 nets'
+   QuantConvs, quantized linear attentions' cores and whole blocks left);
+   (b) ``evidence_eval.main`` on the training YAML from a ``save_params``
+   checkpoint of seeded weights at EV_HR 256, 4 steps, with EV_CFG: its
+   three tables, every number finite, 6 / 3 a forward; (c) both debug
+   captures in phase 4's sampler and in each of phase 7's runs, against a
+   run without them: the same bits, 1 + steps - start frames, the last
+   frame unnormalizing to the output, the frames' device bytes; (d)
+   ``tools.flagship_ckpt``: the reference-format ``.pth`` of 137,569,939
+   parameters loads with no key missing or left over and ``python -m
+   srgd_tpu_torch.infer`` writes the x4 PNG, which the same ``.pth``
+   sampled in this process with the CLI's options repeats bit for bit. Its
+   launches count among the main paths'.
+13. bench: one U-Net forward (b = 8 tiles of 256 px) and one even and one odd
    step of a 512-px LR input (2304 canvas), for the default net and for the
    ``use_pallas`` net.
-13. profile, only with ``--profile``: ``torch.profiler`` over three forwards of
+14. profile, only with ``--profile``: ``torch.profiler`` over three forwards of
    each net (default, ``use_pallas`` and the int8 net of phase 10, which
    must launch none of PyTorch's abs or round kernels), device time
    per kernel name, per kernel of the port (summed over all its launches and
@@ -207,7 +225,7 @@ KERNELS = {
 }
 # the phases whose launches count as the main paths' in the summary
 MAIN_PATHS = ('slice', 'slice_pallas', 'deep_cache', 'families', 'serve',
-              'train', 'int8', 'mesh')
+              'train', 'int8', 'mesh', 'quality')
 OFF_PATH = ('linear_attention',)   # a public entry that no module calls
 PALLAS_FLAGS = dict(use_pallas=True, use_pallas_attention=True,
                     fused_linattn=False)
@@ -2335,6 +2353,335 @@ def phase_mesh(torch, device, *, size=512, tile_size=256, steps=2,
     return res
 
 
+QUALITY_MODES = 'float32,bfloat16,w8a8dyn,w8a8,bfloat16+dc2.2'
+
+
+class _ForwardLedger:
+    """Every ``SRUnet`` forward while active (the class's ``forward``
+    wrapped): the launches it made (counts read before and after, never
+    reset) against what its net routes to, ``_per_forward`` of the whole
+    net or ``_cached_per_forward`` on a DeepCache cache, times 0 on the
+    CPU. Calibration forwards (a QuantConv recording) are counted apart and
+    not held. ``records``: per net, in the order they first ran, its
+    forwards, cached forwards, launches and one full forward's routing."""
+
+    def __init__(self, device):
+        import weakref
+        self.scale = int(device.type == 'cuda')
+        self.records, self.mismatched, self.calibration = [], 0, 0
+        # a freed net's id can come back for the next one: key by the net
+        self._of = weakref.WeakKeyDictionary()
+
+    def __enter__(self):
+        from srgd_tpu_torch.nn.quant import quant_convs
+        from srgd_tpu_torch.nn.unet import SRUnet
+        self._cls, self._real = SRUnet, SRUnet.forward
+        ledger, real = self, SRUnet.forward
+
+        def forward(net, *args, **kw):
+            before = read_counts()
+            out = real(net, *args, **kw)
+            got = {k: v - before[k] for k, v in read_counts().items()}
+            if any(m.calibrating for _, m in quant_convs(net)):
+                ledger.calibration += 1
+                return out
+            cached = kw.get('deep_cache') is not None
+            want = (_cached_per_forward(net, kw['cache_depth']) if cached
+                    else _per_forward(list(net.modules())))
+            rec = ledger._of.get(net)
+            if rec is None:
+                rec = ledger._of[net] = {
+                    'forwards': 0, 'cached_forwards': 0,
+                    'launches': dict.fromkeys(KERNELS, 0),
+                    'per_forward': _per_forward(list(net.modules()))}
+                ledger.records.append(rec)
+            rec['forwards'] += 1
+            rec['cached_forwards'] += cached
+            for k in KERNELS:
+                rec['launches'][k] += got[k]
+            ledger.mismatched += got != {k: v * ledger.scale
+                                         for k, v in want.items()}
+            return out
+
+        SRUnet.forward = forward
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.forward = self._real
+        return False
+
+    @property
+    def ok(self) -> bool:
+        return bool(self.records) and self.mismatched == 0
+
+    def runs(self) -> list:
+        return list(self.records)
+
+
+def _with_env(env: dict, fn):
+    """``fn()`` with ``env`` set in ``os.environ`` and its stdout captured:
+    (result, stdout)."""
+    import contextlib
+    import io
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    text = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(text):
+            result = fn()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return result, text.getvalue()
+
+
+def _quality_probe(torch, device, *, lr, steps, dim, modes):
+    """Section (a): ``quality_probe.main`` at QP_QMIN 0 on seeded random
+    weights; per mode its net's forwards and launches, the output checks,
+    its seconds and its PSNR line against the first mode."""
+    import numpy as np
+
+    from srgd_tpu_torch.tools import quality_probe as probe
+    env = dict(QP_LR=str(lr), QP_STEPS=str(steps), QP_DIM=str(dim),
+               QP_MODES=modes, QP_QMIN='0', QP_WSEED='0', QP_CSEED='1',
+               QP_DEVICE=str(device))
+    with _ForwardLedger(device) as ledger:
+        (outs, seconds), text = _with_env(env, probe.main)
+    lines = probe.parse_lines(text)
+    names = modes.split(',')
+    runs = ledger.runs()
+    hr = 4 * lr
+    per_mode, checks = {}, {'forwards_route': ledger.ok,
+                            'one_net_per_mode': len(runs) == len(names)}
+    for name, run in zip(names, runs):
+        out = outs[name]
+        checks[f'{name}_output'] = bool(
+            out.shape == (1, hr, hr, 3) and np.isfinite(out).all()
+            and out.min() >= 0 and out.max() <= 1)
+        checks[f'{name}_sampled_line'] = name in lines['sampled']
+        if name != names[0]:
+            checks[f'{name}_psnr_line'] = name in lines['psnr']
+        per_mode[name] = {**run, 'seconds': seconds[name],
+                          **lines['psnr'].get(name, {})}
+    # the attention kernels run in every dtype: 6 / 3 a full forward in
+    # float32 as in bf16, 4 / 0 a cached one at depth 2
+    for name in ('float32', 'bfloat16'):
+        if name in per_mode:
+            pf = per_mode[name]['per_forward']
+            checks[f'{name}_routes_6_3'] = (pf['linattn_block'],
+                                            pf['attn_block']) == (6, 3)
+    return {'lines': text.splitlines(), 'modes': per_mode,
+            'calibration_forwards': ledger.calibration,
+            'checks': checks}
+
+
+def _quality_evidence(torch, device, tmp, *, conf, hr, base_steps, tile_size,
+                      seed):
+    """Section (b): ``evidence_eval.main`` from a trainer checkpoint of
+    seeded weights (``save_params``: ``ema_params``, ``step``); the three
+    tables, every number finite, every forward routed."""
+    import numpy as np
+
+    from srgd_tpu_torch.checkpoint import save_params
+    from srgd_tpu_torch.config import load_config
+    from srgd_tpu_torch.tools import evidence_eval, quality_probe
+    weights = quality_probe.random_weights(load_config(conf), seed, device)
+    ckpt = os.path.join(tmp, 'evidence_ckpt')
+    save_params(ckpt, {'ema_params': {k: v.cpu() for k, v in weights.items()},
+                       'step': 0})
+    del weights
+    env = dict(EV_CKPT=ckpt, EV_CONF=conf, EV_HR=str(hr), EV_TILE=str(tile_size),
+               EV_IMAGES='1', EV_BASE_STEPS=str(base_steps),
+               EV_LADDER_CLASSES='0,1,2', EV_LADDER_IMAGES='1',
+               EV_LADDER_MODES=f'ddim-{base_steps},dpmpp-{base_steps},'
+                               f'ddim:1.0-{base_steps}',
+               EV_CFG='1', EV_CFG_IMAGES='1',
+               EV_CFG_MODE=f'ddim:1.0-{base_steps}', EV_DEVICE=str(device))
+    t0 = time.perf_counter()
+    with _ForwardLedger(device) as ledger:
+        _, text = _with_env(env, evidence_eval.main)
+    seconds = time.perf_counter() - t0
+    tables = evidence_eval.parse_tables(text)
+    numbers = [v for rows in tables.values() for r in rows
+               for v in r.values() if isinstance(v, float)]
+    numbers += [x for r in tables['cfg'] for pair in r['classes'].values()
+                for x in pair]
+    runs = ledger.runs()
+    checks = {
+        'per_class_table': [r['label'] for r in tables['per_class']]
+        == [0, 1, 2],
+        'ladder_table': len(tables['ladder']) == 4,
+        'cfg_table': len(tables['cfg']) == 9,
+        'finite': bool(numbers) and bool(np.isfinite(numbers).all()),
+        'forwards_route': ledger.ok,
+        'one_net': len(runs) == 1}
+    return {'tables': tables, 'seconds': seconds, 'net': runs[:1],
+            'lines': len(text.splitlines()), 'checks': checks}
+
+
+def _quality_captures(torch, device, *, size, tile_size, batch_size, seed,
+                      dpmpp_size, net_kw, conf_kw):
+    """Section (c): each sampler once with both captures and once without:
+    the same bits, 1 + steps - start frames, the last frame unnormalizing
+    to the output; the frames' device bytes."""
+    from srgd_tpu_torch.diffusion.base import GeneratorNoise
+    cond, label = _slice_inputs(torch, device, size, seed)
+    small, _ = _slice_inputs(torch, device, dpmpp_size, seed + 7)
+    # (name, wrapper builder, steps, generation_start_steps, tiled)
+    cases = (
+        ('slice', lambda: build_flagship(torch, device, seed=seed, **net_kw),
+         2, 0, True),
+        ('gaussian_ddim_tiled', lambda: build_family(
+            torch, device, 'conditional_gaussian', seed=seed,
+            learned_sinusoidal_cond=False, **conf_kw), 4, 1, True),
+        ('elucidated_heun_tiled', lambda: build_family(
+            torch, device, 'conditional_elucidated', seed=seed, **conf_kw),
+         4, 0, True),
+        ('elucidated_dpmpp', lambda: build_family(
+            torch, device, 'conditional_elucidated', seed=seed, **conf_kw),
+         4, 0, False),
+        ('continuous_learned_tiled', lambda: build_family(
+            torch, device, 'conditional_continuous', seed=seed,
+            noise_schedule='learned', **conf_kw), 2, 0, True))
+    res, checks = {}, {}
+    for name, build, steps, start, tiled in cases:
+        wrapper = build()
+
+        def run(**capture):
+            noise = GeneratorNoise(seed + 2, device)
+            kw = dict(class_cond_scale=2.0, num_sample_steps=steps,
+                      generation_start_steps=start, noise=noise, **capture)
+            if tiled:
+                return wrapper.tiled_sample(cond, label, batch_size=batch_size,
+                                            tile_size=tile_size, **kw)
+            return wrapper.sample(small, label, **kw)
+
+        with torch.inference_mode():
+            plain = run()
+            out, traj, x0 = run(capture_trajectory=True, capture_x0=True)
+        if device.type == 'cuda':
+            torch.cuda.synchronize()
+        frames = 1 + steps - start
+        c = {'bit_equal': bool(torch.equal(plain, out)),
+             'frames': traj.shape[0] == x0.shape[0] == frames
+             and traj.shape[1:] == out.shape,
+             'last_frame_is_output': bool(torch.equal(
+                 (torch.clamp(traj[-1], -1.0, 1.0) + 1.0) * 0.5, out)),
+             'float32_finite': traj.dtype == x0.dtype == torch.float32
+             and bool(torch.isfinite(traj).all() and torch.isfinite(x0).all())}
+        checks.update({f'{name}_{k}': v for k, v in c.items()})
+        res[name] = {'steps': steps, 'start': start, 'tiled': tiled,
+                     'frame_shape': list(traj.shape),
+                     'frame_bytes': traj.numel() * traj.element_size()
+                     + x0.numel() * x0.element_size(),
+                     'device': str(traj.device), **c}
+        del wrapper, plain, out, traj, x0
+    return {'runs': res, 'checks': checks}
+
+
+def _quality_pth(torch, device, tmp, *, conf, dim):
+    """Section (d): ``tools.flagship_ckpt`` (the reference-format ``.pth``
+    written, loaded with ``load_strict`` and sampled through ``python -m
+    srgd_tpu_torch.infer``), then the same ``.pth`` through the CLI's
+    ``build_sampler`` (``factory.get_model``) in this process with the
+    CLI's seed, options and float32 settings: the same PNG bits."""
+    import numpy as np
+    from PIL import Image
+
+    from srgd_tpu_torch import infer
+    from srgd_tpu_torch.tools import flagship_ckpt
+    rec, text = _with_env({}, lambda: flagship_ckpt.run(
+        os.path.join(tmp, 'flagship'), conf_path=conf, device=str(device),
+        dim=dim))
+    cli = rec['cli']
+    args = infer.parse_args(['-c', conf, '-m', rec['pth'], '--input_dir',
+                             os.path.dirname(cli['input']), '--output_dir',
+                             os.path.join(tmp, 'unused'),
+                             *flagship_ckpt.CLI_ARGS, '--device', str(device)])
+    # the CLI's process keeps PyTorch's float32 defaults, TF32 convolutions
+    # and full-precision matmuls, which phase_device switched off here
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    t0 = time.perf_counter()
+    try:
+        with _ForwardLedger(device) as ledger:
+            sampler = infer.build_sampler(args)
+            image = infer.try_open_image(cli['input'])
+            mine = np.asarray(infer.sr_target_image(
+                image, sampler, test_label=args.test_label, seed=args.seed))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    seconds = time.perf_counter() - t0
+    with Image.open(cli['output']) as im:
+        theirs = np.asarray(im.convert('RGB'))
+    checks = {
+        'params': rec['saved']['params'] == (flagship_ckpt.FLAGSHIP_PARAMS
+                                             if dim == 128
+                                             else rec['loaded']['params']),
+        'no_missing_keys': rec['loaded']['missing'] == [],
+        'no_unexpected_keys': rec['loaded']['unexpected'] == [],
+        'png_x4': tuple(cli['size']) == (64, 64),
+        'in_process_png_equal': mine.shape == theirs.shape
+        and bool((mine == theirs).all()),
+        'forwards_route': ledger.ok}
+    return {'params': rec['saved']['params'], 'bytes': rec['saved']['bytes'],
+            'keys': rec['saved']['keys'],
+            'missing': len(rec['loaded']['missing']),
+            'unexpected': len(rec['loaded']['unexpected']),
+            'save_seconds': rec['saved']['seconds'],
+            'load_seconds': rec['loaded']['seconds'],
+            'cli_seconds': cli['seconds'], 'in_process_seconds': seconds,
+            'max_abs_png_diff': int(np.abs(mine.astype(int)
+                                           - theirs.astype(int)).max()),
+            'net': ledger.runs(), 'lines': text.splitlines(),
+            'checks': checks}
+
+
+def phase_quality(torch, device, *, lr=128, steps=4, dim=128,
+                  modes=QUALITY_MODES, evidence_conf=TRAIN_YAML,
+                  evidence_hr=256, evidence_steps=4, evidence_tile=256,
+                  size=512, tile_size=256, batch_size=8, dpmpp_size=256,
+                  pth_conf=SHIPPED_YAML, pth_dim=128, seed=0, net_kw=None,
+                  conf_kw=None):
+    """The evaluation entry points at full width: (a) the quality probe in
+    ``modes`` on a ``4 lr`` canvas, (b) the evidence eval from a trainer
+    checkpoint, (c) the samplers' debug captures in every family and (d)
+    the flagship ``.pth`` through the CLI. ``net_kw`` / ``conf_kw`` shrink
+    the nets of (c) for the tests' rehearsal, as the other phases' do."""
+    import tempfile
+    here = os.path.dirname(os.path.abspath(__file__))
+    evidence_conf = os.path.join(here, evidence_conf)
+    pth_conf = os.path.join(here, pth_conf)
+    res = {'phase': 'quality'}
+    reset_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_quality_') as tmp:
+        res['probe'] = _quality_probe(torch, device, lr=lr, steps=steps,
+                                      dim=dim, modes=modes)
+        res['evidence'] = _quality_evidence(
+            torch, device, tmp, conf=evidence_conf, hr=evidence_hr,
+            base_steps=evidence_steps, tile_size=evidence_tile, seed=seed)
+        res['captures'] = _quality_captures(
+            torch, device, size=size, tile_size=tile_size,
+            batch_size=batch_size, seed=seed, dpmpp_size=dpmpp_size,
+            net_kw=net_kw or {}, conf_kw=conf_kw or {})
+        res['pth'] = _quality_pth(torch, device, tmp, conf=pth_conf,
+                                  dim=pth_dim)
+    if device.type == 'cuda':
+        torch.cuda.synchronize()
+    res['launches'] = read_counts()
+    res['seconds'] = time.perf_counter() - t0
+    res['ok'] = all(all(res[k]['checks'].values())
+                    for k in ('probe', 'evidence', 'captures', 'pth'))
+    return res
+
+
 def phase_bench(torch, device, *, lr_size=512, tile_size=256, batch_size=8,
                 seed=0, forward_iters=5, **net_kw):
     """The bench geometry: a lr_size LR input upscaled x4 (2048 out, 2304
@@ -2635,8 +2982,8 @@ def phase_profile(torch, device, *, tile_size=256, batch_size=8, seed=0,
 def summary(kernels, *paths):
     """One entry per kernel: ``launches``, its launches on the main paths
     (``slice``, ``slice_pallas``, ``deep_cache``, ``families``, ``serve``,
-    ``train``, ``int8``, ``mesh``; each run counted from 0 around that run
-    alone), the largest error over its cases (``int8_conv``'s are the int8
+    ``train``, ``int8``, ``mesh``, ``quality``; each run counted from 0
+    around that run alone), the largest error over its cases (``int8_conv``'s are the int8
     phase's), and the times and bound of its first bfloat16 case.
     ``drive_launches`` counts launches outside any path: no module calls
     ``linear_attention``, so its ``launches`` is 0 and the one direct call of
@@ -2683,7 +3030,7 @@ def main() -> int:
     emit(phase_build())
     todo = [phase_kernels, phase_slice, phase_slice_pallas, phase_deep_cache,
             phase_families, phase_serve, phase_train, phase_int8, phase_mesh,
-            phase_bench]
+            phase_quality, phase_bench]
     if '--profile' in sys.argv[1:]:
         todo.append(phase_profile)
     phases = []

@@ -1,8 +1,8 @@
 """Shared diffusion machinery: normalisation, fused classifier-free guidance,
 the DeepCache refresh schedule, the tiled sampler's per-parity tile
-batches and its chunk loop (split over a mesh's data ranks), and the pieces
-the three training losses share (draws, condition dropout, the elementwise
-loss).
+batches and its chunk loop (split over a mesh's data ranks), the samplers'
+debug frame stacks (``Capture``, ``crop_frames``), and the pieces the three
+training losses share (draws, condition dropout, the elementwise loss).
 
 Counterpart of ``srgd_tpu/diffusion/base.py``. Guidance runs the conditional
 and the null branch as ONE doubled batch in ``[cond, null]`` order and merges
@@ -335,6 +335,53 @@ def make_deep_cache(wrapper, n_steps: int, mode: str, *, shape=None,
     if cond_tiles is not None:
         return DeepCache.tiled(*args, cond_tiles, mode)
     return DeepCache.untiled(*args, shape, mode)
+
+
+def crop_frames(frames, crop):
+    """Frames (..., H, W, C) cropped to the output region ``crop`` (left,
+    top, right, bottom): a tiled capture crops every frame, frame 0 too, so
+    its stack has one shape; the padding margin is re-noise bookkeeping,
+    not image content (``srgd_tpu.diffusion.base.crop_frames``)."""
+    left, top, right, bottom = crop
+    return frames[..., top:bottom, left:right, :]
+
+
+class Capture:
+    """The samplers' debug captures, the reference's ``with_images`` and
+    ``with_x0_images``: for each of the trajectory and the x0 estimate that
+    is asked for, a float32 (1 + n_steps, B, H, W, C) stack in [-1, 1]
+    whose frame 0 is the init canvas and frame k the state after the k-th
+    executed step, each cropped to ``crop`` when one is given (tiled).
+    Frames are copied into the stack as they come; with neither asked for
+    nothing is kept and ``result`` returns the output alone."""
+
+    def __init__(self, trajectory: bool, x0: bool, n_steps: int, init,
+                 crop=None):
+        self.crop, self.k, self.stacks = crop, 0, {}
+        first = init if crop is None else crop_frames(init, crop)
+        for name, wanted in (('trajectory', trajectory), ('x0', x0)):
+            if wanted:
+                stack = first.new_empty((n_steps + 1, *first.shape))
+                stack[0] = first
+                self.stacks[name] = stack
+
+    @property
+    def x0(self) -> bool:
+        return 'x0' in self.stacks
+
+    def add(self, img, x0=None) -> None:
+        """The frames of the next executed step."""
+        self.k += 1
+        for name, frame in (('trajectory', img), ('x0', x0)):
+            if name in self.stacks:
+                self.stacks[name][self.k] = (
+                    frame if self.crop is None
+                    else crop_frames(frame, self.crop))
+
+    def result(self, out):
+        """``out``, or (out, trajectory), (out, x0) or (out, trajectory,
+        x0), as the JAX samplers return them."""
+        return (out, *self.stacks.values()) if self.stacks else out
 
 
 def pick_chunk(n_tiles: int, batch_size: int) -> int:

@@ -59,8 +59,8 @@ import numpy as np
 import torch
 
 from srgd_tpu_torch.diffusion.base import (
-    GeneratorNoise, drop_conditions, elementwise_loss, guidance_scale,
-    guided_denoise, make_deep_cache, nhwc_net_apply,
+    Capture, GeneratorNoise, crop_frames, drop_conditions, elementwise_loss,
+    guidance_scale, guided_denoise, make_deep_cache, nhwc_net_apply,
     normalize_to_neg_one_to_one, pad_tiles_to_multiple, per_sample_mean,
     prepare_tile_context, resolve_guidance_mode, run_tile_chunks,
     unnormalize_to_zero_to_one,
@@ -228,11 +228,15 @@ class ContinuousDiffusion:
                class_guidance_start_steps: int = 0,
                generation_start_steps: int = 0,
                num_sample_steps: int | None = None, init_noise=None,
-               step_noises=None, noise=None):
+               step_noises=None, noise=None, capture_trajectory: bool = False,
+               capture_x0: bool = False):
         """Untiled sampling. condition_x: (B, H, W, C) in [0, 1]; returns
-        (B, H, W, C) in [0, 1]. ``init_noise`` (B, H, W, C) and
-        ``step_noises`` (N, B, H, W, C) override the noise source, as the JAX
-        ``sample`` allows."""
+        (B, H, W, C) in [0, 1], with the trajectory and/or x0 frame stacks
+        after it when ``capture_trajectory`` / ``capture_x0`` ask for them
+        (``base.Capture``: frame 0 the init image, then the image, or the
+        clamped x0 estimate, after each executed step). ``init_noise`` (B,
+        H, W, C) and ``step_noises`` (N, B, H, W, C) override the noise
+        source, as the JAX ``sample`` allows."""
         n_steps = num_sample_steps or self.num_sample_steps
         gss = generation_start_steps
         cond = normalize_to_neg_one_to_one(condition_x)
@@ -247,6 +251,7 @@ class ContinuousDiffusion:
         img = (self.q_sample_log_snr(cond, table[gss], init_noise)
                if gss > 0 else init_noise)
         dc = make_deep_cache(self, n_steps - gss, mode, shape=cond.shape)
+        cap = Capture(capture_trajectory, capture_x0, n_steps - gss, img)
         prev_x0 = None      # dpmpp: the previous step's x_start
         for i in range(gss, n_steps):
             is_last = i == n_steps - 1
@@ -266,7 +271,9 @@ class ContinuousDiffusion:
                     log_snr_prev=table[max(i - 1, 0)], **kw), i - gss)
             if self.sampler == 'dpmpp':
                 prev_x0 = x_start
-        return unnormalize_to_zero_to_one(torch.clamp(img, -1.0, 1.0))
+            cap.add(img, x_start)
+        return cap.result(
+            unnormalize_to_zero_to_one(torch.clamp(img, -1.0, 1.0)))
 
     @torch.inference_mode()
     def tiled_sample(self, condition_x, class_label=None, *,
@@ -277,12 +284,21 @@ class ContinuousDiffusion:
                      class_guidance_start_steps: int = 0,
                      generation_start_steps: int = 0,
                      num_sample_steps: int | None = None,
-                     start_white_noise: bool = True, noise=None, mesh=None):
+                     start_white_noise: bool = True, noise=None, mesh=None,
+                     capture_trajectory: bool = False,
+                     capture_x0: bool = False):
         """Alternating-grid tiled sampling. condition_x: (B, H, W, C) in
         [0, 1] at the target resolution (the pre-upscaled LR image); returns
         (B, H, W, C) in [0, 1]. ``noise``: the noise source (default
         ``GeneratorNoise(0, device)``); ``mesh``: a ``parallel.mesh.Mesh``
-        whose data ranks split the tile chunks (``base.run_tile_chunks``)."""
+        whose data ranks split the tile chunks (``base.run_tile_chunks``),
+        so every rank gets world 1's output and frames.
+
+        ``capture_trajectory`` / ``capture_x0``: the debug frame stacks
+        after the output (``base.Capture``), each frame cropped to the
+        output region: frame 0 the init canvas, then the canvas, or the
+        canvas of x0 estimates its tiles scatter, after each executed step.
+        Not with DeepCache."""
         n_steps = num_sample_steps or self.num_sample_steps
         b, h, w, _ = condition_x.shape
         geom = make_geometry(h, w, tile_size, tile_stride)
@@ -306,11 +322,20 @@ class ContinuousDiffusion:
         cond_tiles, label_tiles, n_chunks, chunks, interior_mask = \
             prepare_tile_context(cond_padded, geom, b, batch_size, class_label)
         dc = make_deep_cache(self, n_steps - gss, mode, cond_tiles=cond_tiles)
+        if self.deep_cache_interval > 1 and (capture_trajectory or capture_x0):
+            raise NotImplementedError(
+                'deep_cache_interval > 1 with tiled debug captures is not '
+                'supported: the per-step state stack would also stack the '
+                'per-tile deep-feature caches. Capture with deep-cache off.')
+        cap = Capture(capture_trajectory, capture_x0, n_steps - gss, img,
+                      crop=geom.crop)
 
-        # dpmpp threads a canvas of the previous step's x_start: each step's
-        # tiles read it on their own grid and scatter their x_start back
+        # dpmpp (and an x0 capture) threads a canvas of the step's x_start:
+        # each step's tiles read it on their own grid and scatter their
+        # x_start back
         dpmpp = self.sampler == 'dpmpp'
-        x0_canvas = torch.zeros_like(img) if dpmpp else None
+        thread_x0 = dpmpp or cap.x0
+        x0_canvas = torch.zeros_like(img) if thread_x0 else None
 
         def tiled(canvas_t, p):
             return pad_tiles_to_multiple(extract_tiles(canvas_t, geom, p),
@@ -336,9 +361,9 @@ class ContinuousDiffusion:
                     prev_x0=None if px is None else px[sl],
                     log_snr_prev=table[max(i - 1, 0)], **kw),
                 dc, (i - gss) // 2, p, n_chunks[p], chunks[p], n_orig, tiles,
-                n_out=2 if dpmpp else 1, mesh=mesh)
+                n_out=2 if thread_x0 else 1, mesh=mesh)
             img = scatter_tiles(img, outs[0], geom, p)
-            if dpmpp:
+            if thread_x0:
                 x0_canvas = scatter_tiles(x0_canvas, outs[1], geom, p)
 
             if p == 1 and interior_mask is not None:
@@ -347,10 +372,11 @@ class ContinuousDiffusion:
                 sigma_next = float(np.sqrt(_sigmoid(-_f32(table[i + 1]))))
                 fresh = noise.margin(i, canvas) * sigma_next
                 img = img * interior_mask + fresh * (1.0 - interior_mask)
+            cap.add(img, x0_canvas)
 
-        left, top, right, bottom = geom.crop
-        out = img[:, top:bottom, left:right, :]
-        return unnormalize_to_zero_to_one(torch.clamp(out, -1.0, 1.0))
+        out = crop_frames(img, geom.crop)
+        return cap.result(
+            unnormalize_to_zero_to_one(torch.clamp(out, -1.0, 1.0)))
 
     # ------------------------------------------------------------------
     # Training loss: ``ContinuousDiffusion.loss`` of the JAX package.

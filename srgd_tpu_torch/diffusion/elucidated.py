@@ -36,8 +36,8 @@ import numpy as np
 import torch
 
 from srgd_tpu_torch.diffusion.base import (
-    GeneratorNoise, drop_conditions, elementwise_loss, guidance_scale,
-    guided_denoise, make_deep_cache, nhwc_net_apply,
+    Capture, GeneratorNoise, crop_frames, drop_conditions, elementwise_loss,
+    guidance_scale, guided_denoise, make_deep_cache, nhwc_net_apply,
     normalize_to_neg_one_to_one, pad_tiles_to_multiple, per_sample_mean,
     prepare_tile_context, resolve_guidance_mode, run_tile_chunks,
     unnormalize_to_zero_to_one,
@@ -128,9 +128,11 @@ class ElucidatedDiffusion:
     def heun(self, x_hat, sigma_hat, sigma_next, cond, class_label, mode: str,
              scale: float, second_order: bool, **cache_kw):
         """The Euler step from the churned x_hat to sigma_next and, with
-        ``second_order``, its Heun correction: (x_next,)[ + (cache,)]. A
-        refresh (``return_cache``) runs both evaluations full and returns the
-        later one's cache; a cached step reads ``deep_cache`` in both."""
+        ``second_order``, its Heun correction: (x_next, d)[ + (cache,)], d
+        the step's derivative (x - denoised) / sigma, the corrector's d' on
+        a Heun step: what the reference's x0 capture stores. A refresh
+        (``return_cache``) runs both evaluations full and returns the later
+        one's cache; a cached step reads ``deep_cache`` in both."""
         den, *cache = self._denoise(x_hat, sigma_hat, cond, class_label, mode,
                                     scale, **cache_kw)
         d = (x_hat - den) / float(sigma_hat)
@@ -141,7 +143,8 @@ class ElucidatedDiffusion:
             d2 = (x_next - den2) / float(sigma_next)
             x_next = x_hat + float(_f32(0.5) * (sigma_next - sigma_hat)) * (
                 d + d2)
-        return (x_next, *cache)
+            d = d2
+        return (x_next, d, *cache)
 
     def _denoise(self, x, sigma, cond, class_label, mode, scale, **cache_kw):
         out = self.precond_denoise(x, sigma, cond, class_label, mode, scale,
@@ -160,8 +163,12 @@ class ElucidatedDiffusion:
     def sample_org(self, condition_x, class_label=None, *, cond_scale=1.0,
                    guidance_start_steps=0, class_cond_scale=1.0,
                    class_guidance_start_steps=0, generation_start_steps=0,
-                   num_sample_steps=None, noise=None):
-        """Stochastic Heun, untiled: condition_x (B, H, W, C) in [0, 1]."""
+                   num_sample_steps=None, noise=None, capture_trajectory=False,
+                   capture_x0=False):
+        """Stochastic Heun, untiled: condition_x (B, H, W, C) in [0, 1]. The
+        captures (``base.Capture``) hold the image after each executed step
+        and, as the reference's x0 capture does, the step's derivative d
+        (d' on Heun steps), not the denoised image."""
         n = num_sample_steps or self.num_sample_steps
         mode = resolve_guidance_mode(cond_scale, class_cond_scale)
         cond = normalize_to_neg_one_to_one(condition_x)
@@ -170,25 +177,30 @@ class ElucidatedDiffusion:
         noise = noise or GeneratorNoise(0, cond.device)
         img = self._init(noise, cond, sig, gss)
         dc = make_deep_cache(self, n - gss, mode, shape=cond.shape)
+        cap = Capture(capture_trajectory, capture_x0, n - gss, img)
         for i in range(gss, n):
             x_hat, sigma_hat = self.churn(
                 img, sig[i], gam[i], lambda: noise.step(i, img.shape))
             scale = guidance_scale(i, mode, cond_scale, guidance_start_steps,
                                    class_cond_scale,
                                    class_guidance_start_steps)
-            img, = dc.step(lambda **kw: self.heun(
+            img, d = dc.step(lambda **kw: self.heun(
                 x_hat, sigma_hat, sig[i + 1], cond, class_label, mode, scale,
                 i < n - 1, **kw), i - gss)
-        return unnormalize_to_zero_to_one(torch.clamp(img, -1.0, 1.0))
+            cap.add(img, d)
+        return cap.result(
+            unnormalize_to_zero_to_one(torch.clamp(img, -1.0, 1.0)))
 
     @torch.inference_mode()
     def sample_using_dpmpp(self, condition_x, class_label=None, *,
                            cond_scale=1.0, guidance_start_steps=0,
                            class_cond_scale=1.0, class_guidance_start_steps=0,
                            generation_start_steps=0, num_sample_steps=None,
-                           noise=None):
+                           noise=None, capture_trajectory=False,
+                           capture_x0=False):
         """DPM-Solver++(2M), untiled; the first executed step and the last
-        (sigma_next = 0) take the first-order update."""
+        (sigma_next = 0) take the first-order update. The x0 capture holds
+        each step's combined estimate D."""
         n = num_sample_steps or self.num_sample_steps
         mode = resolve_guidance_mode(cond_scale, class_cond_scale)
         cond = normalize_to_neg_one_to_one(condition_x)
@@ -199,6 +211,7 @@ class ElucidatedDiffusion:
         # uniform refreshes, whatever the schedule, as in the reference
         dc = make_deep_cache(self, n - gss, mode, shape=cond.shape,
                              schedule='')
+        cap = Capture(capture_trajectory, capture_x0, n - gss, img)
         old = None
         for i in range(gss, n):
             scale = guidance_scale(i, mode, cond_scale, guidance_start_steps,
@@ -217,7 +230,9 @@ class ElucidatedDiffusion:
                      + float(gamma) * old)
             img = float(sig[i + 1] / sig[i]) * img - float(np.expm1(-h)) * d
             old = denoised
-        return unnormalize_to_zero_to_one(torch.clamp(img, -1.0, 1.0))
+            cap.add(img, d)
+        return cap.result(
+            unnormalize_to_zero_to_one(torch.clamp(img, -1.0, 1.0)))
 
     def sample(self, condition_x, class_label=None, **kw):
         """``sample_using_dpmpp`` when ``use_dpmpp_solver``, else Heun."""
@@ -231,10 +246,13 @@ class ElucidatedDiffusion:
                      tile_stride: int | None = None, cond_scale=1.0,
                      guidance_start_steps=0, class_cond_scale=1.0,
                      class_guidance_start_steps=0, generation_start_steps=0,
-                     num_sample_steps=None, noise=None, mesh=None):
+                     num_sample_steps=None, noise=None, mesh=None,
+                     capture_trajectory=False, capture_x0=False):
         """Alternating-grid tiled Heun. condition_x: (B, H, W, C) in [0, 1]
-        at the target resolution; returns (B, H, W, C) in [0, 1]. ``mesh``:
-        as the continuous family's."""
+        at the target resolution; returns (B, H, W, C) in [0, 1]. ``mesh``
+        and the captures: as the continuous family's, the x0 canvas (which
+        starts as the init canvas) holding the tiles' d, as ``sample_org``'s
+        x0 capture does."""
         n = num_sample_steps or self.num_sample_steps
         b, h, w, _ = condition_x.shape
         geom = make_geometry(h, w, tile_size, tile_stride)
@@ -250,6 +268,14 @@ class ElucidatedDiffusion:
         cond_tiles, label_tiles, n_chunks, chunks, interior_mask = \
             prepare_tile_context(cond_padded, geom, b, batch_size, class_label)
         dc = make_deep_cache(self, n - gss, mode, cond_tiles=cond_tiles)
+        if self.deep_cache_interval > 1 and (capture_trajectory or capture_x0):
+            raise NotImplementedError(
+                'deep_cache_interval > 1 with tiled debug captures is not '
+                'supported (the state stack would also stack the per-tile '
+                'deep-feature caches); capture with deep-cache off')
+        cap = Capture(capture_trajectory, capture_x0, n - gss, img,
+                      crop=geom.crop)
+        x0_canvas = img if cap.x0 else None
 
         for i in range(gss, n):
             p = i % 2
@@ -260,23 +286,26 @@ class ElucidatedDiffusion:
                                             lambda: noise.step(i, canvas))
             tiles, n_orig = pad_tiles_to_multiple(
                 extract_tiles(img_hat, geom, p), chunks[p])
-            out, = run_tile_chunks(
+            outs = run_tile_chunks(
                 lambda sl, **kw: self.heun(
                     tiles[sl], sigma_hat, sig[i + 1], cond_tiles[p][sl],
                     None if label_tiles[p] is None else label_tiles[p][sl],
                     mode, scale, i < n - 1, **kw),
                 dc, (i - gss) // 2, p, n_chunks[p], chunks[p], n_orig, tiles,
-                mesh=mesh)
+                n_out=2 if cap.x0 else 1, mesh=mesh)
             # the tiles' Heun steps land on the un-churned canvas
-            img = scatter_tiles(img, out, geom, p)
+            img = scatter_tiles(img, outs[0], geom, p)
+            if cap.x0:
+                x0_canvas = scatter_tiles(x0_canvas, outs[1], geom, p)
 
             if p == 1 and interior_mask is not None:
                 fresh = float(sig[i]) * noise.margin(i, canvas)
                 img = img * interior_mask + fresh * (1.0 - interior_mask)
+            cap.add(img, x0_canvas)
 
-        left, top, right, bottom = geom.crop
-        out = img[:, top:bottom, left:right, :]
-        return unnormalize_to_zero_to_one(torch.clamp(out, -1.0, 1.0))
+        out = crop_frames(img, geom.crop)
+        return cap.result(
+            unnormalize_to_zero_to_one(torch.clamp(out, -1.0, 1.0)))
 
     # ------------------------------------------------------------------
     # Training loss: ``ElucidatedDiffusion.loss`` of the JAX package.

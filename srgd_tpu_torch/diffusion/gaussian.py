@@ -34,8 +34,8 @@ import torch
 
 from srgd_tpu_torch.diffusion import schedules
 from srgd_tpu_torch.diffusion.base import (
-    GeneratorNoise, drop_conditions, elementwise_loss, guidance_scale,
-    guided_denoise, make_deep_cache, nhwc_net_apply,
+    Capture, GeneratorNoise, crop_frames, drop_conditions, elementwise_loss,
+    guidance_scale, guided_denoise, make_deep_cache, nhwc_net_apply,
     normalize_to_neg_one_to_one, pad_tiles_to_multiple, per_sample_mean,
     prepare_tile_context, resolve_guidance_mode, run_tile_chunks,
     unnormalize_to_zero_to_one,
@@ -168,33 +168,34 @@ class GaussianDiffusion:
 
     def p_sample_step(self, x, t: int, cond, class_label, noise, mode: str,
                       scale: float, **cache_kw):
-        """One ancestral step from timestep t: (x_prev,)[ + (cache,)]."""
+        """One ancestral step from timestep t: (x_prev, x0)[ + (cache,)],
+        x0 the clamped estimate."""
         eps, x0, *cache = self.model_predictions(x, t, cond, class_label,
                                                  mode, scale, **cache_kw)
         x0 = torch.clamp(x0, -1.0, 1.0)
         mean, log_var = self.q_posterior(x0, x, t)
         if t > 0:
             mean = mean + float(np.exp(_f32(0.5) * log_var)) * noise
-        return (mean, *cache)
+        return (mean, x0, *cache)
 
     def ddim_step(self, x, time: int, time_next: int, cond, class_label,
                   mode: str, scale: float, **cache_kw):
         """One DDIM step (eta = 0) from ``time`` to ``time_next`` (-1 on the
-        terminal pair, which returns x0): (x_next,)[ + (cache,)]."""
+        terminal pair, which returns x0): (x_next, x0)[ + (cache,)]."""
         eps, x0, *cache = self.model_predictions(
             x, time, cond, class_label, mode, scale, clip_x_start=True,
             rederive_pred_noise=True, **cache_kw)
         if time_next < 0:
-            return (x0, *cache)
+            return (x0, x0, *cache)
         alpha_next = self.sched.alphas_cumprod[time_next]
         c = np.sqrt(np.maximum(_f32(1.0) - alpha_next, _f32(0.0)))
-        return (float(np.sqrt(alpha_next)) * x0 + float(c) * eps, *cache)
+        return (float(np.sqrt(alpha_next)) * x0 + float(c) * eps, x0, *cache)
 
     @torch.inference_mode()
     def p_sample_loop(self, cond, class_label, *, cond_scale=1.0,
                       guidance_start_steps=0, class_cond_scale=1.0,
                       class_guidance_start_steps=0, generation_start_steps=0,
-                      noise=None):
+                      noise=None, capture_trajectory=False, capture_x0=False):
         """Ancestral sampling over all T steps; cond in [-1, 1]."""
         mode = resolve_guidance_mode(cond_scale, class_cond_scale)
         T, gss = self.timesteps, generation_start_steps
@@ -202,21 +203,24 @@ class GaussianDiffusion:
         init = noise.init(cond.shape)
         img = self.q_sample(cond, T - gss, init) if gss > 0 else init
         dc = make_deep_cache(self, T - gss, mode, shape=cond.shape)
+        cap = Capture(capture_trajectory, capture_x0, T - gss, img)
         for i in range(gss, T):
             t = T - 1 - i
             nz = noise.step(i, img.shape) if t > 0 else None
             scale = guidance_scale(i, mode, cond_scale, guidance_start_steps,
                                    class_cond_scale,
                                    class_guidance_start_steps)
-            img, = dc.step(lambda **kw: self.p_sample_step(
+            img, x0 = dc.step(lambda **kw: self.p_sample_step(
                 img, t, cond, class_label, nz, mode, scale, **kw), i - gss)
-        return unnormalize_to_zero_to_one(img)
+            cap.add(img, x0)
+        return cap.result(unnormalize_to_zero_to_one(img))
 
     @torch.inference_mode()
     def ddim_sample(self, cond, class_label, *, cond_scale=1.0,
                     guidance_start_steps=0, class_cond_scale=1.0,
                     class_guidance_start_steps=0, generation_start_steps=0,
-                    sampling_timesteps=None, noise=None):
+                    sampling_timesteps=None, noise=None,
+                    capture_trajectory=False, capture_x0=False):
         """DDIM over ``ddim_time_pairs``; cond in [-1, 1]."""
         mode = resolve_guidance_mode(cond_scale, class_cond_scale)
         n_steps = sampling_timesteps or self.sampling_timesteps
@@ -227,30 +231,37 @@ class GaussianDiffusion:
         img = (self.q_sample(cond, int(pairs[gss][0]), init) if gss > 0
                else init)
         dc = make_deep_cache(self, n_steps - gss, mode, shape=cond.shape)
+        cap = Capture(capture_trajectory, capture_x0, n_steps - gss, img)
         for i in range(gss, n_steps):
             time, time_next = int(pairs[i][0]), int(pairs[i][1])
             scale = guidance_scale(i, mode, cond_scale, guidance_start_steps,
                                    class_cond_scale,
                                    class_guidance_start_steps)
-            img, = dc.step(lambda **kw: self.ddim_step(
+            img, x0 = dc.step(lambda **kw: self.ddim_step(
                 img, time, time_next, cond, class_label, mode, scale, **kw),
                 i - gss)
-        return unnormalize_to_zero_to_one(img)
+            cap.add(img, x0)
+        return cap.result(unnormalize_to_zero_to_one(img))
 
     def sample(self, condition_x, class_label=None, *, cond_scale=1.0,
                guidance_start_steps=0, class_cond_scale=1.0,
                class_guidance_start_steps=0, generation_start_steps=0,
-               num_sample_steps=None, noise=None):
+               num_sample_steps=None, noise=None, capture_trajectory=False,
+               capture_x0=False):
         """Untiled sampling, condition_x (B, H, W, C) in [0, 1]: DDIM when
         ``sampling_timesteps`` < ``timesteps`` (``num_sample_steps`` DDIM
         steps), else ancestral over all T steps (``num_sample_steps`` is not
-        read), as the reference dispatches. No final clamp."""
+        read), as the reference dispatches. No final clamp. The captures
+        (``base.Capture``) hold the image, or the clamped x0 estimate,
+        after each executed step."""
         cond = normalize_to_neg_one_to_one(condition_x)
         kw = dict(cond_scale=cond_scale,
                   guidance_start_steps=guidance_start_steps,
                   class_cond_scale=class_cond_scale,
                   class_guidance_start_steps=class_guidance_start_steps,
-                  generation_start_steps=generation_start_steps, noise=noise)
+                  generation_start_steps=generation_start_steps, noise=noise,
+                  capture_trajectory=capture_trajectory,
+                  capture_x0=capture_x0)
         if self.is_ddim_sampling:
             return self.ddim_sample(cond, class_label,
                                     sampling_timesteps=num_sample_steps, **kw)
@@ -262,11 +273,12 @@ class GaussianDiffusion:
                      tile_stride: int | None = None, cond_scale=1.0,
                      guidance_start_steps=0, class_cond_scale=1.0,
                      class_guidance_start_steps=0, generation_start_steps=0,
-                     num_sample_steps=None, noise=None, mesh=None):
+                     num_sample_steps=None, noise=None, mesh=None,
+                     capture_trajectory=False, capture_x0=False):
         """Alternating-grid tiled DDIM over ``ddim_time_pairs(T, n)``.
         condition_x: (B, H, W, C) in [0, 1] at the target resolution;
-        returns (B, H, W, C) in [0, 1]. ``mesh``: as the continuous
-        family's."""
+        returns (B, H, W, C) in [0, 1]. ``mesh`` and the captures: as the
+        continuous family's (the x0 canvas starts as the init canvas)."""
         n_steps = num_sample_steps or self.sampling_timesteps
         b, h, w, _ = condition_x.shape
         geom = make_geometry(h, w, tile_size, tile_stride)
@@ -284,6 +296,14 @@ class GaussianDiffusion:
         cond_tiles, label_tiles, n_chunks, chunks, interior_mask = \
             prepare_tile_context(cond_padded, geom, b, batch_size, class_label)
         dc = make_deep_cache(self, n_steps - gss, mode, cond_tiles=cond_tiles)
+        if self.deep_cache_interval > 1 and (capture_trajectory or capture_x0):
+            raise NotImplementedError(
+                'deep_cache_interval > 1 with tiled debug captures is not '
+                'supported (the state stack would also stack the per-tile '
+                'deep-feature caches); capture with deep-cache off')
+        cap = Capture(capture_trajectory, capture_x0, n_steps - gss, img,
+                      crop=geom.crop)
+        x0_canvas = img if cap.x0 else None
 
         def tiled(canvas_t, p):
             return pad_tiles_to_multiple(extract_tiles(canvas_t, geom, p),
@@ -296,14 +316,16 @@ class GaussianDiffusion:
                                    class_cond_scale,
                                    class_guidance_start_steps)
             tiles, n_orig = tiled(img, p)
-            out, = run_tile_chunks(
+            outs = run_tile_chunks(
                 lambda sl, **kw: self.ddim_step(
                     tiles[sl], time, time_next, cond_tiles[p][sl],
                     None if label_tiles[p] is None else label_tiles[p][sl],
                     mode, scale, **kw),
                 dc, (i - gss) // 2, p, n_chunks[p], chunks[p], n_orig, tiles,
-                mesh=mesh)
-            img = scatter_tiles(img, out, geom, p)
+                n_out=2 if cap.x0 else 1, mesh=mesh)
+            img = scatter_tiles(img, outs[0], geom, p)
+            if cap.x0:
+                x0_canvas = scatter_tiles(x0_canvas, outs[1], geom, p)
 
             if p == 1 and interior_mask is not None and time_next >= 0:
                 # margin := q_sample(zeros, t_next); the terminal step keeps
@@ -311,10 +333,11 @@ class GaussianDiffusion:
                 coeff = float(self.sched.sqrt_one_minus_alphas_cumprod[time_next])
                 fresh = noise.margin(i, canvas) * coeff
                 img = img * interior_mask + fresh * (1.0 - interior_mask)
+            cap.add(img, x0_canvas)
 
-        left, top, right, bottom = geom.crop
-        out = img[:, top:bottom, left:right, :]
-        return unnormalize_to_zero_to_one(torch.clamp(out, -1.0, 1.0))
+        out = crop_frames(img, geom.crop)
+        return cap.result(
+            unnormalize_to_zero_to_one(torch.clamp(out, -1.0, 1.0)))
 
     # ------------------------------------------------------------------
     # Training loss: ``GaussianDiffusion.loss`` of the JAX package.

@@ -103,9 +103,12 @@ def build_wrapper(conf, net, log_snr=None):
     raise NotImplementedError(conf.model)
 
 
-def get_model(conf, ckpt_path: str | None = None, *, device, dtype=None):
+def get_model(conf, ckpt_path: str | None = None, *, device, dtype=None,
+              state_dict: dict | None = None):
     """Build (wrapper, net) on ``device``; ``dtype`` overrides
-    ``conf.compute_dtype``."""
+    ``conf.compute_dtype``. ``state_dict``: weights in the port's layout (a
+    learned schedule's under ``log_snr.``), loaded as a checkpoint's are,
+    instead of ``ckpt_path``'s."""
     if conf.param_dtype not in ('float32', 'bfloat16'):
         raise ValueError(f'param_dtype {conf.param_dtype!r}: float32 or '
                          'bfloat16')
@@ -116,11 +119,15 @@ def get_model(conf, ckpt_path: str | None = None, *, device, dtype=None):
         log_snr = LearnedLogSNR(conf.learned_schedule_net_hidden_dim,
                                 device=device).eval()
     ckpt_path = ckpt_path if ckpt_path is not None else conf.ckpt_path
-    if ckpt_path:
+    source = 'the given state dict'
+    if state_dict is None and ckpt_path:
         trained = os.path.isdir(ckpt_path)
-        unet_sd, schedule_sd = split_schedule(
-            load_trained_checkpoint(ckpt_path) if trained
-            else load_reference_checkpoint(ckpt_path))
+        state_dict = (load_trained_checkpoint(ckpt_path) if trained
+                      else load_reference_checkpoint(ckpt_path))
+        source = (f'{"trained EMA" if trained else "reference ema_model"} '
+                  f'weights from {ckpt_path}')
+    if state_dict is not None:
+        unet_sd, schedule_sd = split_schedule(state_dict)
         load_unet_state(net, unet_sd, conf.load_strict)
         if log_snr is not None:
             log_snr.load_state_dict(schedule_sd, strict=True)
@@ -128,8 +135,7 @@ def get_model(conf, ckpt_path: str | None = None, *, device, dtype=None):
             raise KeyError('the checkpoint holds a learned log-SNR schedule '
                            f'but the config has noise_schedule '
                            f'{conf.noise_schedule!r}')
-        logger.info('loaded %s weights from %s', 'trained EMA' if trained
-                    else 'reference ema_model', ckpt_path)
+        logger.info('loaded %s', source)
     else:
         gen = torch.Generator().manual_seed(conf.seed)
         net.init_weights(gen)

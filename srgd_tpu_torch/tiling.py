@@ -18,7 +18,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
-import torch.nn.functional as F
 
 
 def pad_geometry(height: int, width: int, tile_size: int = 256):
@@ -168,11 +167,25 @@ def scatter_tiles(canvas: torch.Tensor, tiles: torch.Tensor, geom: TileGeometry,
     return canvas
 
 
+def _reflect_index(n: int, before: int, after: int, device) -> torch.Tensor:
+    """Source rows of a reflect pad of ``n`` rows by (before, after): the
+    mirror without repeating the edge, folded again where a pad is longer
+    than the input (period 2 (n - 1)), as ``jnp.pad(mode='reflect')``
+    does; torch's F.pad refuses pads of n rows or more."""
+    i = torch.arange(-before, n + after, device=device)
+    period = max(2 * (n - 1), 1)
+    j = torch.remainder(i, period)
+    return torch.where(j >= n, period - j, j)
+
+
 def reflect_pad(x: torch.Tensor, pad: tuple) -> torch.Tensor:
-    """(B, H, W, C) reflect pad with (l, r, t, b), torch F.pad semantics."""
+    """(B, H, W, C) reflect pad with (l, r, t, b): F.pad's reflect where the
+    pads are shorter than the input, ``jnp.pad``'s repeated reflection
+    beyond (a condition under half a tile)."""
     l, r, t, b = pad
-    y = F.pad(x.permute(0, 3, 1, 2), (l, r, t, b), mode='reflect')
-    return y.permute(0, 2, 3, 1).contiguous()
+    rows = _reflect_index(x.shape[1], t, b, x.device)
+    cols = _reflect_index(x.shape[2], l, r, x.device)
+    return x[:, rows][:, :, cols].contiguous()
 
 
 def zero_margin(x: torch.Tensor, geom: TileGeometry) -> torch.Tensor:

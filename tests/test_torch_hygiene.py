@@ -61,6 +61,18 @@ mesh = chip_smoke.phase_mesh(torch, cpu, size=40, tile_size=32, steps=2,
                              batch_size=4, train_conf=sys.argv[2], images=4,
                              image_size=40, cli_conf=sys.argv[1], cli_size=10,
                              **net)
+# the probe's calibrated w8a8 mode takes about 7 minutes of a CPU on its
+# 256-px tiles
+from srgd_tpu_torch.tools import quality_probe
+quality_probe.TILE_SIZE = 32
+quality = chip_smoke.phase_quality(
+    torch, cpu, lr=10, steps=4, dim=16,
+    evidence_conf=sys.argv[2], evidence_hr=32, evidence_steps=2,
+    evidence_tile=32, size=40, tile_size=32, batch_size=4, dpmpp_size=32,
+    pth_conf=sys.argv[4], pth_dim=16, net_kw=net,
+    conf_kw=dict(unet_dim=16, ddpm_unet_dim_mults='1,2',
+                 full_attn='False,True', learned_sinusoidal_dim=8,
+                 learned_schedule_net_hidden_dim=16))
 bench = chip_smoke.phase_bench(torch, cpu, lr_size=10, tile_size=32,
                                batch_size=4, forward_iters=1, **net)
 profile = chip_smoke.phase_profile(torch, cpu, tile_size=32, batch_size=2,
@@ -87,15 +99,16 @@ print(json.dumps({
     'sampler': [type(sampler.wrapper).__name__, sampler.wrapper.sampler],
     'ok': [kernels['ok'], slice_['ok'], slice_pallas['ok'], deep_cache['ok'],
            families['ok'], serve['ok'], train['ok'], int8['ok'], mesh['ok'],
-           bench['ok'], profile['ok']],
+           quality['ok'], bench['ok'], profile['ok']],
     'slice': slice_, 'slice_pallas': slice_pallas, 'bench': bench,
     'deep_cache': deep_cache, 'families': families, 'serve': serve,
-    'train': train, 'int8': int8, 'mesh': mesh,
+    'train': train, 'int8': int8, 'mesh': mesh, 'quality': quality,
     'kernel_cases': [[c['kernel'], c['b'], c.get('film'), c['dtype'], c['n'],
                       c['bitwise_repeat']] for c in kernels['cases']],
     'profile': profile,
     'summary': chip_smoke.summary(kernels, slice_, slice_pallas, deep_cache,
-                                  families, serve, train, int8, mesh)}))
+                                  families, serve, train, int8, mesh,
+                                  quality)}))
 """
 
 TINY_YAML = """
@@ -111,6 +124,18 @@ TINY_INT8_YAML = TINY_YAML + """
 compute_dtype: bfloat16
 quantize: w8a8
 quantize_min_channels: 512
+"""
+
+# the flagship geometry (4 stages) at dim 16, for the quality phase's .pth
+TINY_FLAGSHIP_YAML = """
+model: conditional_continuous
+noise_schedule: linear
+unet_dim: 16
+ddpm_unet_dim_mults: '1,2,4,8'
+full_attn: 'False,False,False,True'
+learned_sinusoidal_cond: true
+learned_sinusoidal_dim: 32
+num_classes: 3
 """
 
 # the training YAML's keys at a tiny size: 16-px HR and 4-px LR crops
@@ -144,8 +169,11 @@ def rehearsal(tmp_path_factory):
     train_conf.write_text(TINY_TRAIN_YAML)
     int8_conf = conf.with_name('tiny_int8.yaml')
     int8_conf.write_text(TINY_INT8_YAML)
+    flagship_conf = conf.with_name('tiny_flagship.yaml')
+    flagship_conf.write_text(TINY_FLAGSHIP_YAML)
     res = subprocess.run([sys.executable, '-c', _SLICE, str(conf),
-                          str(train_conf), str(int8_conf)], cwd=REPO,
+                          str(train_conf), str(int8_conf),
+                          str(flagship_conf)], cwd=REPO,
                          env=_env(), capture_output=True, text=True,
                          timeout=600)
     assert res.returncode == 0, res.stderr[-3000:]
@@ -159,7 +187,7 @@ def test_port_and_chip_smoke_phases_import_no_jax(rehearsal):
     assert rep['smoke_imported'] == [], rep['smoke_imported']
     assert rep['port_imported'] == [], rep['port_imported']
     assert rep['sampler'] == ['ContinuousDiffusion', 'dpmpp']
-    assert rep['ok'] == [True] * 11
+    assert rep['ok'] == [True] * 12
     s = rep['slice']
     # downs_0_2 and ups_1_2 are linear; downs_1_2, mid_attn and ups_0_2 full
     assert s['forwards'] > 0
@@ -295,6 +323,54 @@ def test_rehearsed_mesh_phase_samples_trains_and_runs_the_cli(rehearsal):
     assert m['checks']['cli_exit'] and m['checks']['cli_png']
     assert all(m['checks'][k] for k in ('serve_health_mesh', 'serve_png',
                                         'serve_exit'))
+
+
+def test_rehearsed_quality_phase_probes_evaluates_captures_and_loads_a_pth(
+        rehearsal):
+    """The quality phase on the CPU: the probe's five modes on the
+    flagship geometry at dim 16 (a 40-px canvas of 32-px tiles, 4 steps:
+    6 forwards a mode, 3 of them on the cache under dc2.2; the bf16 and
+    float32 nets route 6 / 3 a forward, the w8a8 nets every conv to
+    int8_conv, which quantize_act feeds and, dynamic only, act_amax), its
+    lines parsed; the evidence eval's three tables from a trainer
+    checkpoint; both captures in every family, bit-equal to a run without
+    them; the dim-16 flagship .pth with every key, through the CLI, and
+    the same PNG in this process. The plain versions launch nothing."""
+    q = rehearsal['quality']
+    assert q['ok'], {k: {c: v for c, v in q[k]['checks'].items() if not v}
+                     for k in ('probe', 'evidence', 'captures', 'pth')}
+    assert set(q) >= {'probe', 'evidence', 'captures', 'pth', 'launches',
+                      'seconds'}
+    modes = q['probe']['modes']
+    assert list(modes) == ['float32', 'bfloat16', 'w8a8dyn', 'w8a8',
+                           'bfloat16+dc2.2']
+    assert all(m['forwards'] == 6 for m in modes.values())
+    assert [m['cached_forwards'] for m in modes.values()] == [0, 0, 0, 0, 3]
+    for name in ('float32', 'bfloat16', 'bfloat16+dc2.2'):
+        assert (modes[name]['per_forward']['linattn_block'],
+                modes[name]['per_forward']['attn_block']) == (6, 3)
+    dyn, cal = modes['w8a8dyn']['per_forward'], modes['w8a8']['per_forward']
+    assert dyn['int8_conv'] == dyn['quantize_act'] == dyn['act_amax'] > 0
+    assert cal['int8_conv'] == dyn['int8_conv'] and cal['act_amax'] == 0
+    assert dyn['linattn_block'] == 0 and dyn['linear_attention_qkv'] == 6
+    assert all('psnr' in m for name, m in modes.items() if name != 'float32')
+    ev = q['evidence']['tables']
+    assert (len(ev['per_class']), len(ev['ladder']), len(ev['cfg'])) == (
+        3, 4, 9)
+    runs = q['captures']['runs']
+    assert set(runs) == {'slice', 'gaussian_ddim_tiled',
+                         'elucidated_heun_tiled', 'elucidated_dpmpp',
+                         'continuous_learned_tiled'}
+    assert all(r['bit_equal'] and r['frame_bytes'] > 0 for r in runs.values())
+    assert runs['gaussian_ddim_tiled']['frame_shape'][0] == 1 + 4 - 1
+    pth = q['pth']
+    assert (pth['missing'], pth['unexpected'], pth['max_abs_png_diff']) == (
+        0, 0, 0)
+    assert pth['keys'] == 280 and pth['cli_seconds'] > 0
+    assert set(q['launches'].values()) == {0}
+    # the summary counts the phase among the main paths
+    import chip_smoke
+    assert 'quality' in chip_smoke.MAIN_PATHS
 
 
 def test_train_on_cuda_without_a_card_raises(monkeypatch, tmp_path):
@@ -457,12 +533,16 @@ def _port_sources():
 
 def test_port_sources_import_nothing_of_jax_or_the_jax_package():
     """Statically: no import statement of the port or of chip_smoke.py names
-    jax, jaxlib, flax or srgd_tpu (srgd_tpu_torch is another top-level name)."""
-    banned = {'jax', 'jaxlib', 'flax', 'srgd_tpu'}
+    jax, jaxlib, flax or srgd_tpu (srgd_tpu_torch is another top-level name),
+    nor the JAX package's scripts, tools/ and __graft_entry__ (the port's
+    evaluation tools have their own copies of what they need)."""
+    banned = {'jax', 'jaxlib', 'flax', 'srgd_tpu', 'tools', '__graft_entry__'}
     files = _port_sources()
     assert len(files) > 15
-    # the mesh package too
+    # the mesh package and the evaluation tools too
     assert os.path.join(REPO, 'srgd_tpu_torch', 'parallel', 'mesh.py') in files
+    assert os.path.join(REPO, 'srgd_tpu_torch', 'tools',
+                        'quality_probe.py') in files
     for path in files:
         with open(path) as fp:
             tree = ast.parse(fp.read(), path)

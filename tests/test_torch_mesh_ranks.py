@@ -120,6 +120,20 @@ def sample_rank(mesh, names):
     return {'facts': facts, **{n: sample_case(n, mesh) for n in names}}
 
 
+def capture_case(name: str, mesh=None) -> tuple:
+    """A case's output and both capture stacks, as numpy."""
+    wrapper, cond, label, kw = build_case(name)
+    out = wrapper.tiled_sample(cond, label, noise=GeneratorNoise(7, 'cpu'),
+                               mesh=mesh, capture_trajectory=True,
+                               capture_x0=True, **kw)
+    return tuple(t.numpy() for t in out)
+
+
+def capture_rank(mesh, names):
+    """``capture_case`` of every case in ``names`` under the mesh."""
+    return {n: capture_case(n, mesh) for n in names}
+
+
 def flags_rank(mesh):
     """This rank's float32 precision settings and process-group timeout."""
     from srgd_tpu_torch.parallel.mesh import float32_flags

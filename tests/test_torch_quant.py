@@ -150,8 +150,8 @@ def assert_net_close(got, want, rtol=NET_RTOL):
 
 
 class JaxCodes:
-    """Records the int8 activation operand of every int8 conv that JAX runs
-    eagerly (jitted code runs under ``jax.disable_jit()`` for it), and makes
+    """Records the int8 activation operand of every int8 conv that JAX runs,
+    eagerly or, inside jitted code, through an ordered callback, and makes
     the port's QuantConvs, in call order, run on those codes: each call checks
     that the port's own codes differ from JAX's only by flips (one step, at
     a half-integer) and counts them. ``done()`` checks every code was
@@ -161,9 +161,16 @@ class JaxCodes:
         self.codes, self.used, self.flips, self.elements = [], 0, 0, 0
         real_conv = jax.lax.conv_general_dilated
 
+        def record(lhs):
+            self.codes.append(np.asarray(lhs))
+
         def spy(lhs, *args, **kw):
-            if lhs.dtype == jnp.int8:
-                self.codes.append(np.asarray(lhs))
+            if lhs.dtype != jnp.int8:
+                pass
+            elif isinstance(lhs, jax.core.Tracer):
+                jax.debug.callback(record, lhs, ordered=True)
+            else:
+                record(lhs)
             return real_conv(lhs, *args, **kw)
         monkeypatch.setattr(jax.lax, 'conv_general_dilated', spy)
         real_q = tq.QuantConv.quantize_activation

@@ -57,6 +57,20 @@ def test_extract_scatter_pad_match_jax(h, w, ts, stride):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize('h, w, ts', [(16, 16, 256), (64, 64, 256),
+                                      (10, 150, 256), (40, 40, 32)])
+def test_reflect_pad_longer_than_the_input_matches_jax(h, w, ts):
+    """A condition under half a tile pads by more than its own size; the
+    reflection folds again, as ``jnp.pad`` does (F.pad refuses it)."""
+    geom = tt.make_geometry(h, w, ts)
+    img = np.random.default_rng(h + w).normal(size=(1, h, w, 3)).astype(
+        np.float32)
+    got = tt.reflect_pad(torch.from_numpy(img), geom.pad)
+    assert got.shape == (1, geom.padded_h, geom.padded_w, 3)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jt.reflect_pad(jnp.asarray(img), geom.pad)))
+
+
 def test_pick_chunk_and_padding_match_jax():
     for n in range(1, 100):
         for bs in (1, 3, 4, 8, 16, 32):
