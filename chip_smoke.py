@@ -138,10 +138,22 @@ Phases, each printed as one JSON line:
    srgd_tpu_torch.infer`` writes the x4 PNG, which the same ``.pth``
    sampled in this process with the CLI's options repeats bit for bit. Its
    launches count among the main paths'.
-13. bench: one U-Net forward (b = 8 tiles of 256 px) and one even and one odd
+13. convert: checkpoint conversion (``srgd_tpu_torch.checkpoint.convert``)
+   at full width. The flagship ``.pth`` converted forward to a float32 and a
+   bfloat16 directory, each holding the ``.pth``'s weights (bfloat16 rounded
+   once); the CLI (``srgd_tpu_torch.infer.main`` in this process: 2 steps,
+   one 16-px PNG, the default net) on the ``.pth``, on the float32
+   directory (the same PNG bits), on the ``.pth`` under ``param_dtype:
+   bfloat16`` and on the bfloat16 directory (the same bits again); a 2-step
+   ``train.loop.main`` run of the training YAML, its trainer directory
+   exported with ``--reverse`` (float32 ``model.`` entries equal to its EMA
+   weights) and the CLI on both (the same PNG). Every forward launches
+   6 / 3; the seconds of each step and the files' bytes.
+14. bench: one U-Net forward (b = 8 tiles of 256 px) and one even and one odd
    step of a 512-px LR input (2304 canvas), for the default net and for the
    ``use_pallas`` net.
-14. profile, only with ``--profile``: ``torch.profiler`` over three forwards of
+15. profile, only with ``--profile``, in a fresh child process (``python3
+   chip_smoke.py --profile-only``): ``torch.profiler`` over three forwards of
    each net (default, ``use_pallas`` and the int8 net of phase 10, which
    must launch none of PyTorch's abs or round kernels), device time
    per kernel name, per kernel of the port (summed over all its launches and
@@ -225,7 +237,7 @@ KERNELS = {
 }
 # the phases whose launches count as the main paths' in the summary
 MAIN_PATHS = ('slice', 'slice_pallas', 'deep_cache', 'families', 'serve',
-              'train', 'int8', 'mesh', 'quality')
+              'train', 'int8', 'mesh', 'quality', 'convert')
 OFF_PATH = ('linear_attention',)   # a public entry that no module calls
 PALLAS_FLAGS = dict(use_pallas=True, use_pallas_attention=True,
                     fused_linattn=False)
@@ -2682,6 +2694,135 @@ def phase_quality(torch, device, *, lr=128, steps=4, dim=128,
     return res
 
 
+def phase_convert(torch, device, *, conf=SHIPPED_YAML, dim=128,
+                  train_conf=TRAIN_YAML, images=8, image_size=320,
+                  train_steps=2, seed=0):
+    """Checkpoint conversion (``srgd_tpu_torch.checkpoint.convert``) at full
+    width: the flagship ``.pth`` (``tools.flagship_ckpt.write_pth``)
+    converted forward to a float32 and a bfloat16 directory; the CLI
+    (``srgd_tpu_torch.infer.main``, in this process so that its launches
+    count: 2 steps, one 16-px PNG, the default net) on the ``.pth``, on each
+    directory and on the ``.pth`` under ``param_dtype: bfloat16``: the
+    float32 directory must give the ``.pth``'s PNG bit for bit, the
+    bfloat16 one the bfloat16 ``.pth`` run's. Then a ``train_steps``-step
+    ``train.loop.main`` run of the training YAML, its trainer directory
+    exported with ``--reverse`` (float32, ``model.`` keys, the EMA weights
+    bit for bit) and both sampled through the CLI: the same PNG. Every
+    forward must launch what the net routes to. Reports each step's
+    seconds and the files' bytes."""
+    import tempfile
+
+    import numpy as np
+
+    from srgd_tpu_torch import infer
+    from srgd_tpu_torch.checkpoint import (convert, load_reference_checkpoint,
+                                           load_trained_checkpoint,
+                                           restore_params)
+    from srgd_tpu_torch.config import load_config
+    from srgd_tpu_torch.tools import flagship_ckpt
+    from srgd_tpu_torch.train import loop
+    here = os.path.dirname(os.path.abspath(__file__))
+    conf, train_conf = (os.path.join(here, c) for c in (conf, train_conf))
+    res = {'phase': 'convert', 'seconds': {}}
+    secs, checks = res['seconds'], {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    reset_counts()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_convert_') as tmp:
+        path = lambda *p: os.path.join(tmp, *p)
+        pth = path('flagship.pth')
+        saved = timed('write_pth', lambda: flagship_ckpt.write_pth(
+            pth, dim, seed))
+        res['pth'] = {k: saved[k] for k in ('keys', 'params', 'bytes')}
+        checks['pth_params'] = (
+            dim != 128 or saved['params'] == flagship_ckpt.FLAGSHIP_PARAMS)
+        dirs = {'float32': path('dir_float32'), 'bfloat16': path('dir_bf16')}
+        for dtype, d in dirs.items():
+            timed(f'forward_{dtype}', lambda: convert.main(
+                ['-c', conf, '-m', pth, '-o', d, '--param_dtype', dtype]))
+        ref = load_reference_checkpoint(pth)
+        for dtype, d in dirs.items():
+            got = load_trained_checkpoint(d)
+            want = {k: v.to(getattr(torch, dtype)) for k, v in ref.items()}
+            checks[f'dir_{dtype}_weights'] = (sorted(got) == sorted(want)
+                                              and all(
+                got[k].dtype == want[k].dtype and torch.equal(got[k], want[k])
+                for k in want))
+        bf16_conf = path('conf_bf16.yaml')
+        with open(conf) as f, open(bf16_conf, 'w') as g:
+            g.write(f.read() + '\nparam_dtype: bfloat16\n')
+
+        in_dir = path('in')
+        os.makedirs(in_dir)
+        with open(os.path.join(in_dir, 'x.png'), 'wb') as f:
+            f.write(_png(16, 16, seed))
+        pngs = {}
+
+        def cli(name, conf_path, ckpt):
+            out_dir = path('out', name)
+            argv = ['-c', conf_path, '-m', ckpt, '--input_dir', in_dir,
+                    '--output_dir', out_dir, *flagship_ckpt.CLI_ARGS,
+                    '--device', str(device)]
+            timed(f'cli_{name}',
+                  lambda: _with_env({}, lambda: infer.main(argv)))
+            with open(os.path.join(out_dir, 'x_out.png'), 'rb') as f:
+                pngs[name] = _decoded(f.read())
+
+        with _ForwardLedger(device) as ledger:
+            cli('pth', conf, pth)
+            cli('dir_float32', conf, dirs['float32'])
+            cli('pth_bf16', bf16_conf, pth)
+            cli('dir_bfloat16', conf, dirs['bfloat16'])
+        run_dir = path('run')
+        data_dir = path('data')
+        os.makedirs(data_dir)
+        _synth_pngs(data_dir, images, image_size, seed)
+        state = timed('train', lambda: loop.main(
+            ['-c', train_conf, '--data_dir', data_dir, '--out_dir', run_dir,
+             '--steps', str(train_steps), '--save_every', str(train_steps),
+             '--log_every', '1', '--device',
+             'cuda:0' if device.type == 'cuda' else 'cpu']))
+        trained = os.path.join(run_dir, load_config(train_conf).prefix)
+        exported = path('exported.pth')
+        timed('reverse', lambda: convert.main(
+            ['-c', train_conf, '--reverse', '-m', trained, '-o', exported]))
+        res['exported_bytes'] = os.path.getsize(exported)
+        ema = restore_params(trained)['ema_params']
+        back = torch.load(exported, map_location='cpu',
+                          weights_only=True)['ema_model']
+        checks['reverse_keys'] = sorted(back) == sorted(
+            f'model.{k}' for k in ema)
+        checks['reverse_float32_bits'] = all(
+            v.dtype == torch.float32 and torch.equal(v, ema[k[len('model.'):]])
+            for k, v in back.items())
+        del ema, back, state
+        with _ForwardLedger(device) as train_ledger:
+            cli('trained_dir', train_conf, trained)
+            cli('exported_pth', train_conf, exported)
+    if device.type == 'cuda':
+        torch.cuda.synchronize()
+    res['launches'] = read_counts()
+    res['seconds']['phase'] = time.perf_counter() - t_phase
+    res['nets'] = ledger.runs() + train_ledger.runs()
+    for a, b in (('pth', 'dir_float32'), ('pth_bf16', 'dir_bfloat16'),
+                 ('exported_pth', 'trained_dir')):
+        checks[f'{b}_png_equal'] = (pngs[a].shape == pngs[b].shape
+                                    and bool((pngs[a] == pngs[b]).all()))
+    checks['png_x4'] = all(p.shape == (64, 64, 3) for p in pngs.values())
+    res['bf16_vs_f32_max_png_diff'] = int(np.abs(
+        pngs['pth'].astype(int) - pngs['pth_bf16'].astype(int)).max())
+    checks['forwards_route'] = ledger.ok and train_ledger.ok
+    res['checks'] = checks
+    res['ok'] = all(checks.values())
+    return res
+
+
 def phase_bench(torch, device, *, lr_size=512, tile_size=256, batch_size=8,
                 seed=0, forward_iters=5, **net_kw):
     """The bench geometry: a lr_size LR input upscaled x4 (2048 out, 2304
@@ -2731,19 +2872,38 @@ F32_ONLY_KERNELS = ('phase_a', 'phase_b', 'flash', 'qkv_proj', 'attend',
                     'kv_partials', 'out_rows')
 
 
-def _device_rows(torch, run, calls: int, on_card: bool):
+# spin kernels (``torch.cuda._sleep``) that open every profiler session on
+# the card: the profiler drops the records of a session's first device
+# kernels, more of them the more device work the process has done
+PROFILE_PAD = 64
+PAD_KERNEL = 'spin_kernel'
+
+
+def _device_rows(torch, run, calls: int, on_card: bool, lost=None):
     """(ms per call, launches per call, name) of every device kernel that
-    ``run()`` (``calls`` calls of something) launches, largest first."""
+    ``run()`` (``calls`` calls of something) launches, largest first. On
+    the card the session opens with ``PROFILE_PAD`` spin kernels, left out
+    of the rows, to take the records the profiler drops at its start; the
+    number it dropped is appended to ``lost`` (a list) and must stay under
+    ``PROFILE_PAD`` for ``run()``'s records to be whole."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
     with profile(activities=acts) as prof:
+        if on_card:
+            for _ in range(PROFILE_PAD):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
         run()
     attr = 'self_device_time_total' if on_card else 'self_cpu_time_total'
+    # on the card kernels only, not the operators over them
+    events = [e for e in prof.key_averages() if getattr(e, attr) > 0
+              and (not on_card or e.device_type == DeviceType.CUDA)]
+    if on_card and lost is not None:
+        lost.append(PROFILE_PAD - sum(e.count for e in events
+                                      if _function(e.key) == PAD_KERNEL))
     return sorted(((getattr(e, attr) / 1e3 / calls, e.count / calls, e.key)
-                   for e in prof.key_averages() if getattr(e, attr) > 0
-                   # on the card kernels only, not the operators over them
-                   and (not on_card or e.device_type == DeviceType.CUDA)),
+                   for e in events if _function(e.key) != PAD_KERNEL),
                   reverse=True)
 
 
@@ -2860,6 +3020,7 @@ def phase_profile(torch, device, *, tile_size=256, batch_size=8, seed=0,
     t = torch.zeros(batch_size, device=device)
     res = {'phase': 'profile', 'forwards': forwards, 'nets': {}}
     ok = True
+    lost = []   # records the profiler dropped at each session's start
     here = os.path.dirname(os.path.abspath(__file__))
     for name, flags, merge_owner in (
             ('default', {}, 'linattn_block'),
@@ -2885,7 +3046,8 @@ def phase_profile(torch, device, *, tile_size=256, batch_size=8, seed=0,
         t0 = time.perf_counter()
         run(forwards)
         host_ms = (time.perf_counter() - t0) * 1e3 / forwards
-        rows = _device_rows(torch, lambda: run(forwards), forwards, on_card)
+        rows = _device_rows(torch, lambda: run(forwards), forwards, on_card,
+                            lost)
         by_kernel = _by_kernel(rows, merge_owner)
         f32_ms = sum(ms for k in by_kernel.values()
                      for fn, ms in k['device_kernels'].items()
@@ -2915,7 +3077,7 @@ def phase_profile(torch, device, *, tile_size=256, batch_size=8, seed=0,
             if on_card:
                 torch.cuda.synchronize()
         run()
-        return _device_rows(torch, run, calls, on_card)
+        return _device_rows(torch, run, calls, on_card, lost)
 
     def device_ms(fn):
         return sum(r[0] for r in device_rows(fn))
@@ -2972,19 +3134,46 @@ def phase_profile(torch, device, *, tile_size=256, batch_size=8, seed=0,
     res['standalone_device_ms'] = standalone
     res['standalone_by_device_kernel'] = split
     res['standalone_device_kernels_per_call'] = per_call
-    # one device kernel a groupnorm_silu call (the CPU runs plain ops)
-    res['ok'] = ok and (not on_card or all(
+    res['records_lost_at_session_start'] = lost
+    # one device kernel a groupnorm_silu call (the CPU runs plain ops), and
+    # every session's dropped records inside its padding
+    res['ok'] = ok and (not on_card or (all(
         n == 1 for name, n in per_call.items()
-        if name.startswith('groupnorm_silu')))
+        if name.startswith('groupnorm_silu')) and max(lost) < PROFILE_PAD))
+    return res
+
+
+def phase_profile_child(torch, device, timeout_s=900):
+    """``phase_profile`` in a fresh child process of this script
+    (``--profile-only``), whose failure fails the phase. The profiler drops
+    the records of the first device kernels of every session, any kernel's,
+    and the more device work the process has done the more of them (PERF.md
+    section 7): after the other phases, more than a short session holds.
+    ``_device_rows`` opens each session with ``PROFILE_PAD`` spin kernels
+    to take the drop; a fresh process keeps the drop well inside them."""
+    torch.cuda.empty_cache()    # the child's memory, not this one's cache
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), '--profile-only'],
+        capture_output=True, text=True, timeout=timeout_s,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        res = {'phase': 'profile', 'ok': False}
+    res['child_exit'] = proc.returncode
+    if proc.returncode or res.get('phase') != 'profile':
+        res['ok'] = False
+        res['child_stderr'] = proc.stderr[-3000:]
     return res
 
 
 def summary(kernels, *paths):
     """One entry per kernel: ``launches``, its launches on the main paths
     (``slice``, ``slice_pallas``, ``deep_cache``, ``families``, ``serve``,
-    ``train``, ``int8``, ``mesh``, ``quality``; each run counted from 0
-    around that run alone), the largest error over its cases (``int8_conv``'s are the int8
-    phase's), and the times and bound of its first bfloat16 case.
+    ``train``, ``int8``, ``mesh``, ``quality``, ``convert``; each run
+    counted from 0 around that run alone), the largest error over its
+    cases (``int8_conv``'s are the int8 phase's), and the times and bound of
+    its first bfloat16 case.
     ``drive_launches`` counts launches outside any path: no module calls
     ``linear_attention``, so its ``launches`` is 0 and the one direct call of
     ``slice_pallas`` stands there."""
@@ -3026,13 +3215,18 @@ def main() -> int:
         return 1
     device = torch.device('cuda', 0)
     dev = phase_device(torch)
+    if '--profile-only' in sys.argv[1:]:       # phase_profile_child's child
+        phase_build()
+        res = phase_profile(torch, device)
+        emit(res)
+        return 0 if res['ok'] else 1
     emit(dev)
     emit(phase_build())
     todo = [phase_kernels, phase_slice, phase_slice_pallas, phase_deep_cache,
             phase_families, phase_serve, phase_train, phase_int8, phase_mesh,
-            phase_quality, phase_bench]
+            phase_quality, phase_convert, phase_bench]
     if '--profile' in sys.argv[1:]:
-        todo.append(phase_profile)
+        todo.append(phase_profile_child)
     phases = []
     for phase in todo:
         phases.append(phase(torch, device))

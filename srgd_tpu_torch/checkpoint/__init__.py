@@ -23,7 +23,11 @@ the new state is written to a sibling ``<path>.new`` and swapped in with
 directory renames, so at every instant a complete checkpoint exists under
 ``<path>``, ``<path>.new`` or ``<path>.old``, and ``restore_params`` falls
 back in that order. ``load_trained_checkpoint`` reads such a directory's
-EMA parameters for sampling.
+EMA parameters for sampling, and those of a directory that ``convert``
+(``python -m srgd_tpu_torch.checkpoint.convert``, the counterpart of
+``srgd_tpu/checkpoint/convert.py``) wrote from a reference ``.pth``, which
+holds ``{'ema_params': state dict}`` alone; ``convert --reverse`` writes a
+directory back as a reference ``.pth``.
 """
 
 from __future__ import annotations
@@ -395,6 +399,7 @@ def restore_params(path: str):
 
 
 def load_trained_checkpoint(path) -> dict:
-    """The EMA parameters of a trainer checkpoint directory, as the port's
-    state dict (a learned schedule's entries under ``log_snr.``)."""
+    """The EMA parameters of a checkpoint directory (the trainer's, or
+    one ``convert`` wrote), as the port's state dict (a learned schedule's
+    entries under ``log_snr.``)."""
     return dict(restore_params(path)['ema_params'])

@@ -26,10 +26,12 @@ that fails fails the whole command.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
 import os
 import pickle
 import signal
+import sys
 import tempfile
 import threading
 import time
@@ -226,9 +228,9 @@ def launch(fn, shape, device_type: str, args=(), *,
             return _rank_main(0, fn, shape, device_type, init, args,
                               timeout_s, threads, 1)
         result = os.path.join(tmp, 'result.pkl')
-        spawn(_rank_main, world, (fn, shape, device_type, init, args,
-                                  timeout_s, threads, world, result,
-                                  float32_flags()), join_s)
+        spawn(_spawned_rank, world, (fn, shape, device_type, init, args,
+                                     timeout_s, threads, world, result,
+                                     float32_flags()), join_s)
         if os.path.exists(result):
             with open(result, 'rb') as f:
                 return pickle.load(f)
@@ -272,6 +274,22 @@ def float32_flags() -> tuple:
     and whether cuDNN's convolutions may use TF32."""
     return (torch.get_float32_matmul_precision(),
             torch.backends.cudnn.allow_tf32)
+
+
+def _spawned_rank(local_rank, *args) -> None:
+    """A spawned rank: ``_rank_main``, then out of the process at once.
+    ``destroy_process_group`` leaves the process groups' gloo threads
+    running for a while, and the interpreter's teardown then aborts the
+    process now and then ('terminate called without an active exception',
+    SIGABRT; about one world in 30 under load on the CPU) after the rank's
+    result was written, which would fail a run that succeeded. So a rank
+    that finished flushes its output and leaves with ``os._exit(0)``; one
+    that raised takes ``torch.multiprocessing``'s error path."""
+    _rank_main(local_rank, *args)
+    logging.shutdown()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 def _rank_main(local_rank, fn, shape, device_type, init_method, args,

@@ -4,7 +4,7 @@ Counterpart of ``srgd_tpu/train/loop.py``: the training capability the
 reference's config describes (epochs/warmup/cosine/EMA/save_every_epoch/
 best-loss checkpointing), on the card unless the caller asks for ``--device
 cpu``. Checkpoints hold {params, ema_params, opt_state, step, best_score}
-(``srgd_tpu_torch/checkpoint.py``) and a resumed run reproduces an
+(``srgd_tpu_torch/checkpoint/``) and a resumed run reproduces an
 uninterrupted one bit for bit.
 
 ``--mesh D,M`` trains over D x M ranks, one process per device

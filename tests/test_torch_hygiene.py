@@ -73,6 +73,9 @@ quality = chip_smoke.phase_quality(
     conf_kw=dict(unet_dim=16, ddpm_unet_dim_mults='1,2',
                  full_attn='False,True', learned_sinusoidal_dim=8,
                  learned_schedule_net_hidden_dim=16))
+convert = chip_smoke.phase_convert(torch, cpu, conf=sys.argv[4], dim=16,
+                                  train_conf=sys.argv[5], images=4,
+                                  image_size=40)
 bench = chip_smoke.phase_bench(torch, cpu, lr_size=10, tile_size=32,
                                batch_size=4, forward_iters=1, **net)
 profile = chip_smoke.phase_profile(torch, cpu, tile_size=32, batch_size=2,
@@ -99,16 +102,17 @@ print(json.dumps({
     'sampler': [type(sampler.wrapper).__name__, sampler.wrapper.sampler],
     'ok': [kernels['ok'], slice_['ok'], slice_pallas['ok'], deep_cache['ok'],
            families['ok'], serve['ok'], train['ok'], int8['ok'], mesh['ok'],
-           quality['ok'], bench['ok'], profile['ok']],
+           quality['ok'], convert['ok'], bench['ok'], profile['ok']],
     'slice': slice_, 'slice_pallas': slice_pallas, 'bench': bench,
     'deep_cache': deep_cache, 'families': families, 'serve': serve,
     'train': train, 'int8': int8, 'mesh': mesh, 'quality': quality,
+    'convert': convert,
     'kernel_cases': [[c['kernel'], c['b'], c.get('film'), c['dtype'], c['n'],
                       c['bitwise_repeat']] for c in kernels['cases']],
     'profile': profile,
     'summary': chip_smoke.summary(kernels, slice_, slice_pallas, deep_cache,
                                   families, serve, train, int8, mesh,
-                                  quality)}))
+                                  quality, convert)}))
 """
 
 TINY_YAML = """
@@ -139,7 +143,7 @@ num_classes: 3
 """
 
 # the training YAML's keys at a tiny size: 16-px HR and 4-px LR crops
-TINY_TRAIN_YAML = TINY_YAML + """
+TRAIN_KEYS = """
 prefix: tiny_train
 hr_image_size: 16
 lr_image_size: 4
@@ -155,6 +159,10 @@ skip_val: true
 test_target: best_loss
 compute_dtype: bfloat16
 """
+TINY_TRAIN_YAML = TINY_YAML + TRAIN_KEYS
+# the convert phase's trainer: the flagship geometry at dim 16, so that its
+# CLI runs, on 256-px tiles, keep full attention at the last stage
+TINY_FLAGSHIP_TRAIN_YAML = TINY_FLAGSHIP_YAML + TRAIN_KEYS
 
 
 def _env(**extra):
@@ -171,9 +179,12 @@ def rehearsal(tmp_path_factory):
     int8_conf.write_text(TINY_INT8_YAML)
     flagship_conf = conf.with_name('tiny_flagship.yaml')
     flagship_conf.write_text(TINY_FLAGSHIP_YAML)
+    flagship_train_conf = conf.with_name('tiny_flagship_train.yaml')
+    flagship_train_conf.write_text(TINY_FLAGSHIP_TRAIN_YAML)
     res = subprocess.run([sys.executable, '-c', _SLICE, str(conf),
                           str(train_conf), str(int8_conf),
-                          str(flagship_conf)], cwd=REPO,
+                          str(flagship_conf), str(flagship_train_conf)],
+                         cwd=REPO,
                          env=_env(), capture_output=True, text=True,
                          timeout=600)
     assert res.returncode == 0, res.stderr[-3000:]
@@ -187,7 +198,7 @@ def test_port_and_chip_smoke_phases_import_no_jax(rehearsal):
     assert rep['smoke_imported'] == [], rep['smoke_imported']
     assert rep['port_imported'] == [], rep['port_imported']
     assert rep['sampler'] == ['ContinuousDiffusion', 'dpmpp']
-    assert rep['ok'] == [True] * 12
+    assert rep['ok'] == [True] * 13
     s = rep['slice']
     # downs_0_2 and ups_1_2 are linear; downs_1_2, mid_attn and ups_0_2 full
     assert s['forwards'] > 0
@@ -373,6 +384,35 @@ def test_rehearsed_quality_phase_probes_evaluates_captures_and_loads_a_pth(
     assert 'quality' in chip_smoke.MAIN_PATHS
 
 
+def test_rehearsed_convert_phase_converts_both_ways(rehearsal):
+    """The convert phase on the CPU at dim 16: the flagship-geometry .pth
+    converted forward to a float32 and a bfloat16 directory holding its
+    weights (bfloat16 rounded once), the CLI giving the .pth's PNG from the
+    float32 directory and the bfloat16 .pth run's from the bfloat16 one; a
+    2-step trainer directory exported with --reverse to float32 ``model.``
+    entries equal to its EMA weights, the same PNG from both; every forward
+    routed as its net says, and the phase counted among the main paths.
+    The plain versions launch nothing."""
+    c = rehearsal['convert']
+    assert c['ok'], {k: v for k, v in c['checks'].items() if not v}
+    assert set(c['checks']) >= {
+        'dir_float32_weights', 'dir_bfloat16_weights', 'reverse_keys',
+        'reverse_float32_bits', 'dir_float32_png_equal',
+        'dir_bfloat16_png_equal', 'trained_dir_png_equal', 'forwards_route'}
+    assert c['pth']['keys'] == 280 and c['pth']['bytes'] > 0
+    assert c['exported_bytes'] > 0
+    assert set(c['seconds']) >= {
+        'write_pth', 'forward_float32', 'forward_bfloat16', 'cli_pth',
+        'cli_dir_float32', 'cli_pth_bf16', 'cli_dir_bfloat16', 'train',
+        'reverse', 'cli_trained_dir', 'cli_exported_pth', 'phase'}
+    assert len(c['nets']) == 6 and all(n['forwards'] == 2 for n in c['nets'])
+    assert all((n['per_forward']['linattn_block'],
+                n['per_forward']['attn_block']) == (6, 3) for n in c['nets'])
+    assert set(c['launches'].values()) == {0}
+    import chip_smoke
+    assert 'convert' in chip_smoke.MAIN_PATHS
+
+
 def test_train_on_cuda_without_a_card_raises(monkeypatch, tmp_path):
     """``--device cuda`` (the default) with no card raises before any
     work: no CPU fallback."""
@@ -512,6 +552,20 @@ def test_chip_smoke_without_a_card_fails():
     assert 'no CUDA device' in res.stderr
 
 
+def test_profile_child_that_fails_fails_the_phase(monkeypatch):
+    """``--profile`` runs ``phase_profile`` in a child process of
+    chip_smoke.py; a child that exits non-zero (here: no card) or prints no
+    profile line fails the phase, with its exit code and stderr."""
+    import chip_smoke
+    monkeypatch.setenv('CUDA_VISIBLE_DEVICES', '')
+    monkeypatch.setenv('OMP_NUM_THREADS', '1')
+    monkeypatch.setattr(torch.cuda, 'empty_cache', lambda: None)
+    res = chip_smoke.phase_profile_child(torch, torch.device('cpu'),
+                                         timeout_s=300)
+    assert res['phase'] == 'profile' and res['ok'] is False
+    assert res['child_exit'] != 0 and 'no CUDA device' in res['child_stderr']
+
+
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setenv('PATH', str(tmp_path / 'empty'))
     monkeypatch.delenv('CUDA_HOME', raising=False)
@@ -586,7 +640,7 @@ def _code_of(path: str, rename=('', '')) -> str:
                                   *_yaml_cases()])
 def test_port_copies_equal_their_originals(case, tmp_path):
     """``srgd_tpu_torch/config.py``, the converter in
-    ``srgd_tpu_torch/checkpoint.py``, ``train/data.py`` and
+    ``srgd_tpu_torch/checkpoint/__init__.py``, ``train/data.py`` and
     ``train/native/degrade_native.c`` are the port's own copies: the same
     YAML through both ``load_config``s gives equal fields, a small JAX
     param tree through both converters gives equal state dicts, the data
@@ -775,3 +829,47 @@ def test_profile_groups_every_device_kernel_once():
                    'copies_and_casts': 8.0, 'reductions': 0.0,
                    'elementwise': 9.0, 'other': 0.25}
     assert sum(got.values()) == sum(r[0] for r in rows)
+
+
+def test_profile_sessions_open_with_spin_kernels_left_out(monkeypatch):
+    """On the card every profiler session opens with ``PROFILE_PAD`` spin
+    kernels, which take the records the profiler drops at a session's
+    start: their rows are left out, and the number dropped is counted."""
+    import types
+
+    import torch.profiler
+
+    import chip_smoke
+    from torch.autograd import DeviceType
+    launched = []
+    monkeypatch.setattr(torch.cuda, '_sleep', lambda n: launched.append(n))
+    monkeypatch.setattr(torch.cuda, 'synchronize', lambda *a: None)
+
+    def event(key, count, ms):
+        return types.SimpleNamespace(key=key, count=count,
+                                     self_device_time_total=ms * 1e3,
+                                     device_type=DeviceType.CUDA)
+
+    class Profile:
+        def __init__(self, activities):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            # 4 of the pad's records dropped; the measured kernel whole
+            return [event('spin_kernel(long)', chip_smoke.PROFILE_PAD - 4,
+                          0.1),
+                    event('void (anonymous namespace)::groupnorm_silu_fused'
+                          '<__nv_bfloat16, 8>(int)', 5, 0.5)]
+    monkeypatch.setattr(torch.profiler, 'profile', Profile)
+    lost = []
+    rows = chip_smoke._device_rows(torch, lambda: None, 5, True, lost)
+    assert launched == [1] * chip_smoke.PROFILE_PAD and lost == [4]
+    assert [chip_smoke._function(k) for _, _, k in rows] == [
+        'groupnorm_silu_fused']
+    assert rows[0][1] == 1.0

@@ -8,6 +8,7 @@ the test (``parallel.mesh.launch`` pickles it home).
 """
 
 import tempfile
+import time
 
 import numpy as np
 import torch
@@ -26,13 +27,19 @@ def run_world(fn, shape, args, tmp, timeout_s=60):
     """``fn`` on a spawned gloo world of ``shape`` (or in this process at
     world 1): its ``file://`` store and temporary files under ``tmp``, a
     ``timeout_s`` process-group timeout, ``JOIN_S`` to finish, one thread a
-    rank."""
+    rank. A failure says how long the world ran and under which limits."""
     from srgd_tpu_torch.parallel.mesh import launch
     saved = tempfile.tempdir
     tempfile.tempdir = str(tmp)
+    t0 = time.monotonic()
     try:
         return launch(fn, shape, 'cpu', args, timeout_s=timeout_s,
                       join_s=JOIN_S, threads=1)
+    except Exception as e:
+        raise RuntimeError(
+            f'{fn.__name__} on a {shape} world failed after '
+            f'{time.monotonic() - t0:.1f} s (join deadline {JOIN_S} s, '
+            f'process-group timeout {timeout_s} s)') from e
     finally:
         tempfile.tempdir = saved
 

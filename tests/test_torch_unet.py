@@ -7,6 +7,7 @@ run the same numpy inputs and agree to atol 1e-4 at float32. Plus the two
 CFG nulls and one loose bf16 check."""
 
 import functools
+import os
 
 import numpy as np
 import pytest
@@ -231,3 +232,69 @@ def test_downsample_factor_is_checked():
     net = SRUnet(dim=8, dim_mults=(1, 2, 4), full_attn=(False, False, True))
     with pytest.raises(ValueError, match='divisible by 4'):
         net(torch.zeros(1, 3, 18, 18), torch.zeros(1))
+
+
+SHIPPED_YAML = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), 'conf',
+    'conditional_continuous_linear_df8kost_dim128.yaml')
+
+
+def _seeded_params(shapes, seed):
+    """Numpy weights for a JAX param tree of ``shapes`` (a
+    ``jax.eval_shape`` of the init): kernels at fan-in scale, gains near 1,
+    biases and shifts small, embeddings and the learned sinusoid's
+    frequencies standard normal."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, s):
+        name = path[-1].key
+        if name == 'kernel':
+            std = float(np.prod(s.shape[:-1])) ** -0.5
+            return (rng.standard_normal(s.shape) * std).astype(np.float32)
+        if name in ('g', 'norm_scale'):
+            return (1 + 0.1 * rng.standard_normal(s.shape)).astype(np.float32)
+        if name in ('bias', 'norm_bias'):
+            return (0.05 * rng.standard_normal(s.shape)).astype(np.float32)
+        return rng.standard_normal(s.shape).astype(np.float32)
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+def test_flagship_width_unet_matches_jax():
+    """The shipped YAML's net at its own width (dim 128, mults 1,2,4,8,
+    full attention at the last stage, learned sinusoidal 32, 3 classes) in
+    float32: one forward of b = 1 at 64 px with a class label and the
+    condition image through ``srgd_tpu`` and through the port, on numpy
+    weights carried across by ``state_dict_from_jax``, within f32 atol 1e-4
+    (tests/test_kernels.py's bar). GroupNorm's 8 groups of 16 to 128
+    channels, the 4 heads of 32 and the 1024-channel bottleneck run as they
+    run at the card's width."""
+    from srgd_tpu.config import load_config as jax_load_config
+    from srgd_tpu.nn.unet import build_unet_from_config as jax_build
+    from srgd_tpu_torch.checkpoint import state_dict_from_jax
+    from srgd_tpu_torch.config import load_config
+    from srgd_tpu_torch.nn.unet import build_unet_from_config
+    conf = load_config(SHIPPED_YAML)
+    assert (conf.unet_dim, conf.ddpm_unet_dim_mults, conf.full_attn,
+            conf.learned_sinusoidal_dim, conf.num_classes) == (
+        128, '1,2,4,8', 'False,False,False,True', 32, 3)
+    jnet = jax_build(jax_load_config(SHIPPED_YAML), dtype=jnp.float32)
+    rng = np.random.default_rng(128)
+    x = rng.normal(size=(1, 64, 64, 3)).astype(np.float32)
+    cond = rng.uniform(size=(1, 64, 64, 3)).astype(np.float32)
+    t = rng.normal(size=(1,)).astype(np.float32)
+    label = np.asarray([2])
+    shapes = jax.eval_shape(
+        lambda: jnet.init(jax.random.PRNGKey(0), jnp.asarray(x),
+                          jnp.asarray(t), cond=jnp.asarray(cond),
+                          class_label=jnp.asarray(label)))['params']
+    params = _seeded_params(shapes, seed=128)
+    want = jax.jit(lambda p: jnet.apply(
+        {'params': p}, jnp.asarray(x), jnp.asarray(t), cond=jnp.asarray(cond),
+        class_label=jnp.asarray(label)))(params)
+    net = build_unet_from_config(conf, dtype=torch.float32)
+    net.load_state_dict(state_dict_from_jax(params), strict=True)
+    assert sum(p.numel() for p in net.parameters()) == 137_569_939
+    got = _forward(net.eval(), x, t, cond, label)
+    assert got.shape == want.shape == (1, 64, 64, 3)
+    assert np.abs(np.asarray(want)).max() > 0.1
+    np.testing.assert_allclose(got, np.asarray(want), atol=ATOL, rtol=0)
