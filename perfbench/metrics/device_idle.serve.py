@@ -1,0 +1,8 @@
+"""Share of the profiled part of the serving window with no kernel on the
+device, %."""
+
+from perfbench.readers import device_idle_pct
+
+
+def read(record):
+    return device_idle_pct(record)
