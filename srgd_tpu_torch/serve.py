@@ -17,6 +17,36 @@ either front-end, or both at once:
   sample has run past ``--stall_timeout_seconds``), ``GET /stats`` and
   ``GET /metrics`` (Prometheus text, ``srgd_*``).
 
+``/stats`` and ``/metrics`` count ``served`` images, ``errors``, ``mpix``
+out, and ``sample_seconds``: each request's time from its submission to its
+output, which for a coalesced request holds its waits in the queue and in
+the coalescing window as well as the sample. With ``--coalesce_window``
+they add the batcher's ``batches``, ``batched_images`` and why each batch
+closed: ``batches_closed_full`` (``--max_batch_images`` reached),
+``batches_closed_deadline`` (the window ran out) and
+``batches_closed_mismatch`` (another canvas shape or label kind came next).
+Each request is timed by stage, on the host clock, and each stage has a
+total ``serve_<stage>_seconds`` and a count ``serve_<stage>_count`` of the
+requests timed (the spans ``serve.<stage>`` of ``utils.profiling``, one
+entry a request under its id and its batch's, written when it succeeds):
+
+- ``decode``: the uploaded body, once read, to an RGB image;
+- ``prepare``: the bucket pad and the bicubic upscale to the float
+  condition;
+- ``queue_wait``: from the batcher's queue to the worker taking the request
+  (as a batch's head or member; a request that closed the previous batch
+  by its geometry waits until it heads the next one);
+- ``coalesce_wait``: from then until its batch's sample starts;
+- ``sample``: the sample, whole, shared by the batch's requests;
+- ``encode``: the crop back to 4x the upload and the PNG in memory;
+- ``total``: from ``POST /v1/sr``'s handler entered to the response
+  written.
+
+Seeded, guided and watched requests bypass the batcher and have no
+``queue_wait`` or ``coalesce_wait``; a watched file has neither ``decode``
+nor ``total``, and its ``encode`` is the crop alone. The warm-up
+(``--warmup_sizes``) writes none.
+
 Inputs are reflect-padded to a multiple of ``--lr_bucket`` and the output is
 cropped back, so requests of nearby sizes share one tile geometry.
 Concurrent seedless unguided requests of one canvas shape and label kind
@@ -50,6 +80,7 @@ from __future__ import annotations
 
 import argparse
 import io
+import itertools
 import json
 import logging
 import os
@@ -59,9 +90,11 @@ import threading
 import time
 
 import numpy as np
+from torch.profiler import record_function
 
 from srgd_tpu_torch.diffusion.base import GeneratorNoise
 from srgd_tpu_torch.infer import add_quant_args, log_config
+from srgd_tpu_torch.utils.profiling import SPANS
 
 logger = logging.getLogger('srgd_tpu_torch.serve')
 
@@ -176,6 +209,16 @@ def _to_image(out):
 
 
 # ---------------------------------------------------------------------------
+# Request spans
+# ---------------------------------------------------------------------------
+
+# a request's stages, each the span ``serve.<stage>`` (module docstring)
+STAGES = ('decode', 'prepare', 'queue_wait', 'coalesce_wait', 'sample',
+          'encode', 'total')
+_request_ids = itertools.count()    # unique in the process
+
+
+# ---------------------------------------------------------------------------
 # Request coalescing
 # ---------------------------------------------------------------------------
 
@@ -186,6 +229,9 @@ class _Request:
         self.done = threading.Event()
         self.result = None
         self.error = None
+        # host clock: queued, taken by the worker, its batch's sample
+        self.put_at = self.taken_at = self.start_at = self.end_at = None
+        self.batch = None
 
 
 class BatchingQueue:
@@ -194,26 +240,40 @@ class BatchingQueue:
     One worker thread takes the oldest request, waits up to ``window``
     seconds for more with the same canvas shape and label kind, stacks up to
     ``max_images`` of them and calls ``sample_batch(cond (B, H, W, C),
-    labels (B,) or None)`` once."""
+    labels (B,) or None)`` once.
+
+    ``stats``: ``batches`` and ``batched_images``, and why each batch
+    closed: ``batches_closed_full`` (``max_images`` reached),
+    ``batches_closed_deadline`` (the window ran out) and
+    ``batches_closed_mismatch`` (a request of another canvas shape or label
+    kind came next; it heads the next batch). A batch is numbered by the
+    count of batches before it."""
 
     def __init__(self, sample_batch, window: float, max_images: int):
         self.sample_batch = sample_batch
         self.window = window
         self.max_images = max_images
         self.q = queue.Queue()
-        self.stats = {'batches': 0, 'batched_images': 0}
+        self.stats = {'batches': 0, 'batched_images': 0,
+                      'batches_closed_full': 0, 'batches_closed_deadline': 0,
+                      'batches_closed_mismatch': 0}
         self._stash = None          # first non-matching request, next head
         self._drain_lock = threading.Lock()   # submit may drain post-exit
         self.stop = threading.Event()
         self.thread = threading.Thread(target=self._worker, daemon=True)
         self.thread.start()
 
-    def submit(self, cond, label):
+    def submit(self, cond, label, trace=None):
         """Blocks until the batch holding this request ran; returns its
-        (H, W, C) output or raises the batch's error."""
+        (H, W, C) output or raises the batch's error. ``trace``
+        (``utils.profiling.Trace``) gets the request's ``serve.queue_wait``
+        (queued until the worker takes it), ``serve.coalesce_wait`` (taken
+        until its batch's sample starts) and ``serve.sample``, and the
+        batch's number."""
         if self.stop.is_set():
             raise RuntimeError('server shutting down')
         req = _Request(cond, label)
+        req.put_at = time.perf_counter()
         self.q.put(req)
         # the worker may exit, and its final drain run, between the stop
         # check above and the put: poll, so such a request is failed too
@@ -222,6 +282,11 @@ class BatchingQueue:
                 self._fail_pending()
         if req.error is not None:
             raise req.error
+        if trace is not None:
+            trace.add('serve.queue_wait', req.taken_at - req.put_at)
+            trace.add('serve.coalesce_wait', req.start_at - req.taken_at)
+            trace.add('serve.sample', req.end_at - req.start_at)
+            trace.batch = req.batch
         return req.result
 
     def shutdown(self):
@@ -252,6 +317,7 @@ class BatchingQueue:
     def _collect(self, head):
         group = [head]
         deadline = time.time() + self.window
+        closed = 'deadline'
         while len(group) < self.max_images:
             remaining = deadline - time.time()
             if remaining <= 0:
@@ -261,18 +327,26 @@ class BatchingQueue:
             except queue.Empty:
                 break
             if req is None:
+                closed = None       # shutdown: counted under no reason
                 break
             if (req.cond.shape == head.cond.shape
                     and (req.label is None) == (head.label is None)):
+                req.taken_at = time.perf_counter()
                 group.append(req)
             else:   # another geometry or label kind heads the next group
                 self._stash = req
+                closed = 'mismatch'
                 break
+        if len(group) >= self.max_images:
+            closed = 'full'
+        if closed is not None:
+            self.stats[f'batches_closed_{closed}'] += 1
         return group
 
     def _worker(self):
         while not self.stop.is_set():
             if self._stash is not None:
+                # a stashed request waited in the queue's place until now
                 head, self._stash = self._stash, None
             else:
                 head = self.q.get()
@@ -281,14 +355,26 @@ class BatchingQueue:
             if self.stop.is_set():
                 self._stash = head   # _fail_pending picks it up
                 break
-            group = self._collect(head)
+            head.taken_at = time.perf_counter()
+            # ranges on this thread: a profiler session that records every
+            # thread (``torch.profiler._ExperimentalConfig(
+            # profile_all_threads=True)``) names the device's idle gaps
+            # between samples by them; the requests' spans are added in
+            # ``submit``
+            with record_function('serve.coalesce_wait'):
+                group = self._collect(head)
+            batch = self.stats['batches']
             try:
                 conds = np.concatenate([r.cond for r in group], axis=0)
                 labels = (None if group[0].label is None
                           else np.asarray([r.label for r in group], np.int32))
-                outs = self.sample_batch(conds, labels)
+                start = time.perf_counter()
+                with record_function('serve.sample'):
+                    outs = self.sample_batch(conds, labels)
+                end = time.perf_counter()
                 for i, r in enumerate(group):
                     r.result = outs[i]
+                    r.batch, r.start_at, r.end_at = batch, start, end
             except Exception as e:
                 for r in group:
                     r.error = e
@@ -377,6 +463,10 @@ class Server:
         s['mesh'] = self.model_info['mesh']
         if self.batcher is not None:
             s.update(self.batcher.stats)
+        for stage in STAGES:
+            s[f'serve_{stage}_seconds'] = SPANS.totals.get(f'serve.{stage}',
+                                                           0.0)
+            s[f'serve_{stage}_count'] = SPANS.counts.get(f'serve.{stage}', 0)
         return s
 
     # -- one request -------------------------------------------------------
@@ -467,15 +557,22 @@ class Server:
         return self._timed_sample(conds, labels, self.args.seed)
 
     def super_resolve(self, image, seed=None, test_label=None,
-                      cond_scale=None, class_cond_scale=None):
+                      cond_scale=None, class_cond_scale=None, trace=None):
         """PIL image in -> 4x PIL image out, through the bucketed geometry.
 
         A request without a seed may be coalesced with concurrent ones; a
         seeded request runs alone and re-seeds, so its output depends only
         on its inputs. ``cond_scale`` / ``class_cond_scale`` override the
         daemon's guidance for this request, which then runs alone too.
-        Guidance on both axes raises ValueError before any device work."""
+        Guidance on both axes raises ValueError before any device work.
+
+        The request's stages go into ``trace`` (``utils.profiling.Trace``),
+        which the caller ends; without one, into a trace of its own in
+        ``SPANS``, ended when the request succeeds."""
         from srgd_tpu_torch.infer import upscale_bicubic
+        own = trace is None
+        if own:
+            trace = SPANS.trace(next(_request_ids))
         label = self.args.test_label if test_label is None else test_label
         guidance = {}
         if cond_scale is not None:
@@ -488,26 +585,31 @@ class Server:
         if eff_cond != 1.0 and eff_class != 1.0:
             raise ValueError('guidance on both axes is unsupported: pick '
                              'cond_scale or class_cond_scale, not both')
-        padded, orig = bucket_pad(image, self.args.lr_bucket)
-        upscaled = upscale_bicubic(padded, 4, self.args.interpolation)
-        cond = np.asarray(upscaled, dtype=np.float32)[None] / 255.0
+        with trace('serve.prepare'):
+            padded, orig = bucket_pad(image, self.args.lr_bucket)
+            upscaled = upscale_bicubic(padded, 4, self.args.interpolation)
+            cond = np.asarray(upscaled, dtype=np.float32)[None] / 255.0
 
         t0 = time.time()
         if self.batcher is not None and seed is None and not guidance:
-            out = self.batcher.submit(cond, label)
+            out = self.batcher.submit(cond, label, trace)
         else:
-            out = self._timed_sample(
-                cond, label, self.args.seed if seed is None else seed,
-                guidance=guidance or None)[0]
+            with trace('serve.sample'):
+                out = self._timed_sample(
+                    cond, label, self.args.seed if seed is None else seed,
+                    guidance=guidance or None)[0]
         dt = time.time() - t0
 
-        sr = bucket_crop(_to_image(out), orig)
+        with trace('serve.encode'):
+            sr = bucket_crop(_to_image(out), orig)
         if sr.size != (orig[0] * 4, orig[1] * 4):
             raise RuntimeError(f'output {sr.size} is not 4x {orig}')
         with self.stats_lock:
             self.stats['served'] += 1
             self.stats['mpix'] += sr.size[0] * sr.size[1] / 1e6
             self.stats['sample_seconds'] += dt
+        if own:
+            trace.end()
         return sr
 
     def warmup(self):
@@ -518,8 +620,9 @@ class Server:
             before = dict(self.stats)
         for s in sizes:
             logger.info('warmup: %dpx geometry', s)
+            # a trace never ended: the warm-up writes no request spans
             self.super_resolve(Image.fromarray(np.zeros((s, s, 3), np.uint8)),
-                               seed=0)
+                               seed=0, trace=SPANS.trace())
         with self.stats_lock:
             self.stats.update(before)
 
@@ -605,19 +708,29 @@ class Server:
         """PIL images of one bucketed geometry -> their 4x PIL images, by one
         batched tiled sample."""
         from srgd_tpu_torch.infer import upscale_bicubic
-        padded, origs = zip(*(bucket_pad(im, self.args.lr_bucket)
-                              for im in images))
-        conds = np.stack([
-            np.asarray(upscale_bicubic(p, 4, self.args.interpolation),
-                       np.float32) / 255.0 for p in padded])
+        traces = [SPANS.trace(next(_request_ids)) for _ in images]
+        origs, conds = [], []
+        for im, trace in zip(images, traces):
+            with trace('serve.prepare'):
+                padded, orig = bucket_pad(im, self.args.lr_bucket)
+                origs.append(orig)
+                conds.append(np.asarray(
+                    upscale_bicubic(padded, 4, self.args.interpolation),
+                    np.float32) / 255.0)
+        conds = np.stack(conds)
         label = self.args.test_label
         labels = None if label is None else np.full(
             (len(images),), label, np.int32)
         t0 = time.time()
-        outs = self._sample_batch(conds, labels)
+        with record_function('serve.sample'):
+            outs = self._sample_batch(conds, labels)
         dt = time.time() - t0
-        srs = [bucket_crop(_to_image(out), orig)
-               for out, orig in zip(outs, origs)]
+        srs = []
+        for out, orig, trace in zip(outs, origs, traces):
+            with trace('serve.encode'):
+                srs.append(bucket_crop(_to_image(out), orig))
+            trace.add('serve.sample', dt)
+            trace.end()
         with self.stats_lock:
             self.stats['served'] += len(images)
             self.stats['mpix'] += sum(s.size[0] * s.size[1]
@@ -696,20 +809,31 @@ class Server:
                     self._json(404, {'error': 'not found'})
 
             def do_POST(self):
+                # a request's stages, written once its response is out;
+                # a request that fails writes none
+                trace = SPANS.trace(next(_request_ids))
+                with trace('serve.total'):
+                    ok = self._sr(trace)
+                if ok:
+                    trace.end()
+
+            def _sr(self, trace) -> bool:
                 path = urlparse(self.path)
                 if path.path != '/v1/sr':
                     self._json(404, {'error': 'not found'})
-                    return
+                    return False
                 q = parse_qs(path.query)
                 try:
                     from PIL import Image
                     n = int(self.headers.get('Content-Length', 0))
-                    img = Image.open(io.BytesIO(self.rfile.read(n)))
-                    img = img.convert('RGB')
+                    body = self.rfile.read(n)
+                    with trace('serve.decode'):
+                        img = Image.open(io.BytesIO(body))
+                        img = img.convert('RGB')
                 except Exception as e:
                     server.bump_error()
                     self._json(400, {'error': f'bad image: {e}'})
-                    return
+                    return False
                 try:
                     seed = int(q['seed'][0]) if 'seed' in q else None
                     label = int(q['label'][0]) if 'label' in q else None
@@ -720,25 +844,29 @@ class Server:
                 except ValueError as e:
                     server.bump_error()
                     self._json(400, {'error': f'bad query param: {e}'})
-                    return
+                    return False
                 try:
                     sr = server.super_resolve(img, seed=seed, test_label=label,
                                               cond_scale=cs,
-                                              class_cond_scale=ccs)
+                                              class_cond_scale=ccs,
+                                              trace=trace)
                 except ValueError as e:
                     # the request broke the contract (guidance on both
                     # axes): not a server fault
                     server.bump_error()
                     self._json(400, {'error': str(e)})
-                    return
+                    return False
                 except Exception as e:
                     server.bump_error()
                     logger.exception('sr request failed')
                     self._json(500, {'error': str(e)})
-                    return
-                buf = io.BytesIO()
-                sr.save(buf, format='PNG')
-                self._send(200, 'image/png', buf.getvalue())
+                    return False
+                with trace('serve.encode'):
+                    buf = io.BytesIO()
+                    sr.save(buf, format='PNG')
+                    png = buf.getvalue()
+                self._send(200, 'image/png', png)
+                return True
 
         return ThreadingHTTPServer((self.args.host, self.args.port), Handler)
 

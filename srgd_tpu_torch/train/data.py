@@ -2,8 +2,10 @@
 
 The port's own copy of ``srgd_tpu/train/data.py`` (the JAX package's
 numpy pipeline; tests/test_torch_hygiene.py holds its code to the original,
-and tests/test_torch_train_loop.py its batches). Only the imports point at
-the port: the native helpers are ``srgd_tpu_torch.train.native``.
+and tests/test_torch_train_loop.py its batches). Only the imports differ:
+the native helpers are ``srgd_tpu_torch.train.native``, and scipy's
+``fftconvolve`` and ``j1`` are imported with the module, where the original
+imports them inside ``_conv2d`` and ``sinc_kernel``, on the data threads.
 
 The reference released no trainer or dataset code; its config implies a
 Real-ESRGAN-style degradation pipeline (train_trans_mode: 'realesrgan',
@@ -38,6 +40,10 @@ from dataclasses import dataclass
 from typing import Iterator, Optional
 
 import numpy as np
+# imported here, never first on the data threads: two first imports racing
+# each other leave scipy half initialised and every data thread dies
+from scipy.signal import fftconvolve
+from scipy.special import j1
 
 CLASS_REALSR, CLASS_DENOISE, CLASS_SR = 0, 1, 2
 
@@ -257,7 +263,6 @@ def _conv2d(img: np.ndarray, kernel: np.ndarray) -> np.ndarray:
     np.pad 'symmetric' matches scipy.ndimage.convolve(mode='reflect')
     (edge-pixel-repeating reflection), and all kernels here are
     180-degree-symmetric so correlation == convolution."""
-    from scipy.signal import fftconvolve
     pad = kernel.shape[0] // 2
     f = np.pad(img.astype(np.float32), ((pad, pad), (pad, pad), (0, 0)),
                mode='symmetric')
@@ -268,7 +273,6 @@ def _conv2d(img: np.ndarray, kernel: np.ndarray) -> np.ndarray:
 def sinc_kernel(cutoff: float, size: int = 21) -> np.ndarray:
     """2D circular low-pass (sinc) filter, the Real-ESRGAN ringing/overshoot
     kernel: k(r) = cutoff * J1(cutoff*r) / (2*pi*r), normalized to sum 1."""
-    from scipy.special import j1
     assert size % 2 == 1
     ax = np.arange(size) - size // 2
     xx, yy = np.meshgrid(ax, ax)

@@ -38,7 +38,7 @@ from contextlib import closing as _closing
 import numpy as np
 import torch
 
-from srgd_tpu_torch.utils.profiling import PhaseTimer
+from srgd_tpu_torch.utils.profiling import SPANS, PhaseTimer
 
 logger = logging.getLogger('srgd_tpu_torch.train')
 
@@ -93,13 +93,19 @@ class _DevicePrefetcher:
     stream wait on that event before the batch is used, and marks the
     tensors as used by that stream (``record_stream``), so the allocator
     does not hand their memory out while the step still reads it. On the
-    CPU the batches pass through as tensors."""
+    CPU the batches pass through as tensors.
 
-    def __init__(self, it, device, depth: int = 2):
+    The consumer's wait for each batch is the span ``train.data_wait`` in
+    ``spans``, under the index of the step it feeds (from ``first_step``).
+    """
+
+    def __init__(self, it, device, depth: int = 2, spans=SPANS,
+                 first_step: int = 0):
         import queue
         import threading
 
         self.device = device
+        self.spans, self.index = spans, first_step
         self._q: 'queue.Queue' = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
         self._exc = None
@@ -140,15 +146,17 @@ class _DevicePrefetcher:
         return self
 
     def __next__(self):
-        item = self._q.get()
-        if item is None and self._exc is not None:
-            raise self._exc
-        out, ready = item
-        if ready is not None:
-            current = torch.cuda.current_stream(self.device)
-            current.wait_event(ready)
-            for t in out:
-                t.record_stream(current)
+        with self.spans.span('train.data_wait', self.index):
+            item = self._q.get()
+            if item is None and self._exc is not None:
+                raise self._exc
+            out, ready = item
+            if ready is not None:
+                current = torch.cuda.current_stream(self.device)
+                current.wait_event(ready)
+                for t in out:
+                    t.record_stream(current)
+        self.index += 1
         return out
 
     def close(self):
@@ -480,8 +488,10 @@ def _train_inner(conf, data_dir, out_dir, total_steps, log_every, save_every,
         logger.info('resumed from %s at step %d, best_score %r', ckpt_dir,
                     state.step, best_score)
 
+    # the run's phases and its steps' spans, reported at its end
+    timer = state.timer = PhaseTimer()
     step_fn = make_train_step(wrapper, conf.ema_decay, conditional, conf.seed,
-                              mesh_params=mesh_params)
+                              mesh_params=mesh_params, spans=timer)
     writer = mesh is None or mesh.is_writer
 
     def save_state(path, step):
@@ -514,18 +524,17 @@ def _train_inner(conf, data_dir, out_dir, total_steps, log_every, save_every,
     # already snapshotted by the stint that crossed them
     milestone = int(os.environ.get('TRAIN_MILESTONE_EVERY', 20000))
     last_milestone = state.step // milestone if milestone > 0 else 0
-    timer = state.timer = PhaseTimer()
     t0 = time.time()
-    it = _DevicePrefetcher(batches, device)
+    it = _DevicePrefetcher(batches, device, spans=timer,
+                           first_step=state.step)
     stopped = False
     with _GracefulStop() as stop, _closing(it):
         while state.step < total_steps:
             stopped = stopping()
             if stopped:
                 break
-            with timer.phase('data'):
-                hr, cond, label = next(it)
-            with timer.phase('step'):
+            hr, cond, label = next(it)
+            with timer.phase('step', id=state.step):
                 loss = step_fn(state, hr, cond,
                                label if conditional else None)
                 losses.append(float(loss))  # syncs the step

@@ -32,6 +32,7 @@ import torch
 
 from srgd_tpu_torch.diffusion.base import GeneratorDraws
 from srgd_tpu_torch.train.ema import ema_update
+from srgd_tpu_torch.utils.profiling import SPANS
 
 SCHEDULERS = ('cosine', 'CosineAnnealingLR', 'WarmupLinear',
               'ReduceLROnPlateau', 'constant')
@@ -328,7 +329,8 @@ class TrainState:
     """``params``: the live parameters (the modules' own tensors) by name;
     ``ema_params``: float32 copies; ``step``: steps taken. The training
     loop also leaves the losses of the steps it ran and its ``PhaseTimer``
-    here. A mesh run returns whole CPU copies and ``optimizer`` None."""
+    (its phases and its steps' spans) here. A mesh run returns whole CPU
+    copies and ``optimizer`` None."""
     params: dict
     optimizer: Transform | None
     ema_params: dict
@@ -355,12 +357,17 @@ def step_draws(seed: int, step: int, device) -> GeneratorDraws:
 
 
 def make_train_step(wrapper, ema_decay: float, conditional: bool, seed: int,
-                    mesh_params=None):
+                    mesh_params=None, spans=SPANS):
     """Returns ``step(state, hr, lr_cond, label=None) -> loss``: uint8
     batches normalised on the device, the step's draws keyed by the step,
     loss, backward, the optimizer step (value = loss for the plateau), then
     the EMA; ``state`` is updated in place and the loss comes back as a
     device tensor.
+
+    Each step writes one entry, under its step index, of the spans
+    ``train.forward``, ``train.backward``, ``train.optimizer`` and
+    ``train.ema`` (and ``train.mesh``) into ``spans``
+    (``utils.profiling``): the device time of each phase on a card.
 
     With ``mesh_params`` (``train.sharded.MeshParams``) the batch is this
     rank's rows of the global batch: the draws are made at the global shape
@@ -370,31 +377,41 @@ def make_train_step(wrapper, ema_decay: float, conditional: bool, seed: int,
     one."""
 
     def step(state: TrainState, hr, lr_cond, label=None):
-        if hr.dtype == torch.uint8:
-            hr = hr.float() / 255.0
-        if lr_cond.dtype == torch.uint8:
-            lr_cond = lr_cond.float() / 255.0
+        span = spans.trace(state.step, hr.device)
+        with span('train.forward'):
+            if hr.dtype == torch.uint8:
+                hr = hr.float() / 255.0
+            if lr_cond.dtype == torch.uint8:
+                lr_cond = lr_cond.float() / 255.0
         opt = state.optimizer
-        opt.zero_grad(set_to_none=True)
-        draws = step_draws(seed, state.step, hr.device)
-        if mesh_params is not None:
-            from srgd_tpu_torch.train.sharded import RowDraws, local_rows
-            b = hr.shape[0] * mesh_params.mesh.data_size
-            draws = RowDraws(draws, b, local_rows(b, mesh_params.mesh))
-            for p in mesh_params.live.values():
-                p.grad = None
-        loss = wrapper.loss(hr, lr_cond, label if conditional else None,
-                            draws=draws)
-        loss.backward()
+        with span('train.optimizer'):
+            opt.zero_grad(set_to_none=True)
+        with span('train.forward'):
+            draws = step_draws(seed, state.step, hr.device)
+            if mesh_params is not None:
+                from srgd_tpu_torch.train.sharded import RowDraws, local_rows
+                b = hr.shape[0] * mesh_params.mesh.data_size
+                draws = RowDraws(draws, b, local_rows(b, mesh_params.mesh))
+                for p in mesh_params.live.values():
+                    p.grad = None
+            loss = wrapper.loss(hr, lr_cond, label if conditional else None,
+                                draws=draws)
+        with span('train.backward'):
+            loss.backward()
         loss = loss.detach()
         if mesh_params is not None:
-            loss = mesh_params.reduce(loss)
-        set_lr(opt, state.step)
-        opt.step(value=loss)
+            with span('train.mesh'):
+                loss = mesh_params.reduce(loss)
+        with span('train.optimizer'):
+            set_lr(opt, state.step)
+            opt.step(value=loss)
         if mesh_params is not None:
-            mesh_params.gather()
-        ema_update(state.ema_params, state.params, ema_decay)
+            with span('train.mesh'):
+                mesh_params.gather()
+        with span('train.ema'):
+            ema_update(state.ema_params, state.params, ema_decay)
         state.step += 1
+        span.end()
         return loss
 
     return step

@@ -300,7 +300,8 @@ def test_rehearsed_train_phase_trains_resumes_and_checks(rehearsal):
     assert set(tr['launches'].values()) == {0}
     assert len(tr['losses']) == tr['resume_to'] == 4
     assert tr['ms_per_step'] > 0 and tr['data_path'] in ('native', 'pil')
-    assert {'data', 'step', 'save'} <= set(tr['phase_breakdown'])
+    assert {'train.data_wait', 'train.forward', 'step', 'save'} <= set(
+        tr['phase_breakdown'])
     assert {r['calls_per_step'] for r in tr['recompute_per_step'].values()} \
         == {2.0, 3.0}
     assert tr['remat']['plain']['losses'][0] == \
@@ -616,11 +617,18 @@ def _yaml_cases():
     return sorted(n for n in os.listdir(conf_dir) if n.endswith('.yaml'))
 
 
-def _code_of(path: str, rename=('', '')) -> str:
+def _code_of(path: str, rename=('', ''), drop=()) -> str:
     """The AST of a Python module without its docstrings, with import
-    names starting ``rename[0]`` starting ``rename[1]`` instead."""
+    names starting ``rename[0]`` starting ``rename[1]`` instead, and
+    without the ``from`` imports of the modules ``drop`` names, wherever
+    they stand."""
     with open(path) as fp:
         tree = ast.parse(fp.read())
+    for node in ast.walk(tree):
+        body = getattr(node, 'body', None)
+        if isinstance(body, list):
+            node.body = [n for n in body if not (
+                isinstance(n, ast.ImportFrom) and n.module in drop)]
     for node in ast.walk(tree):
         body = getattr(node, 'body', None)
         if isinstance(body, list) and body and \
@@ -644,8 +652,9 @@ def test_port_copies_equal_their_originals(case, tmp_path):
     ``train/native/degrade_native.c`` are the port's own copies: the same
     YAML through both ``load_config``s gives equal fields, a small JAX
     param tree through both converters gives equal state dicts, the data
-    pipeline's code is the original's but for its docstrings and the import
-    of the native helpers, and the C source is the original's, byte for
+    pipeline's code is the original's but for its docstrings, the import
+    of the native helpers and where it imports scipy (with the module, not
+    on the data threads), and the C source is the original's, byte for
     byte."""
     import dataclasses
 
@@ -657,9 +666,15 @@ def test_port_copies_equal_their_originals(case, tmp_path):
     from srgd_tpu_torch import config as tconfig
 
     if case == 'train_data':
-        assert _code_of(os.path.join(REPO, 'srgd_tpu_torch/train/data.py')) \
+        scipy = ('scipy.signal', 'scipy.special')
+        port = os.path.join(REPO, 'srgd_tpu_torch/train/data.py')
+        assert _code_of(port, drop=scipy) \
             == _code_of(os.path.join(REPO, 'srgd_tpu/train/data.py'),
-                        ('srgd_tpu.train', 'srgd_tpu_torch.train'))
+                        ('srgd_tpu.train', 'srgd_tpu_torch.train'), scipy)
+        with open(port) as fp:
+            top = ast.parse(fp.read()).body
+        assert {n.module for n in top if isinstance(n, ast.ImportFrom)} \
+            >= set(scipy)
         return
     if case == 'train_native_source':
         name = 'train/native/degrade_native.c'

@@ -492,7 +492,9 @@ def test_coalesced_super_resolve_end_to_end(server):
             t.join(timeout=600)
             assert not t.is_alive()
         assert outs[0].size == (32, 32) and outs[1].size == (32, 32)
-        assert server.batcher.stats == {'batches': 1, 'batched_images': 2}
+        assert server.batcher.stats == {
+            'batches': 1, 'batched_images': 2, 'batches_closed_full': 0,
+            'batches_closed_deadline': 1, 'batches_closed_mismatch': 0}
         assert calls == [(2, [0, 1], server.args.seed)]
         direct = [server.super_resolve(imgs[0], seed=5, test_label=0)
                   for _ in range(2)]

@@ -239,6 +239,20 @@ def test_fft_conv2d_matches_direct():
         assert np.abs(got - want).max() <= 1
 
 
+def test_data_module_imports_scipy_before_any_batch():
+    """The degradation's scipy functions are imported with the module, in
+    the thread that imports it: two data threads racing on scipy's first
+    import leave it half initialised and every data thread dies."""
+    code = ('import sys\n'
+            'import srgd_tpu_torch.train.data\n'
+            'print(all(m in sys.modules for m in '
+            '("scipy.signal", "scipy.special")))\n')
+    out = subprocess.run([sys.executable, '-c', code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ['True']
+
+
 def test_dataset_missing_dir(tmp_path):
     from srgd_tpu_torch.train.data import DegradationDataset
     with pytest.raises(FileNotFoundError):
