@@ -9,13 +9,14 @@ Phases, each printed as one JSON line:
    is switched off for matmuls and convolutions.
 2. build: the CUDA kernels are compiled from ``srgd_tpu_torch/csrc``.
 3. kernels: each of the six TPU kernels' ports against its plain PyTorch version at every
-   flagship shape (b = 8; ``groupnorm_silu`` with and without FiLM; every
+   flagship shape (b = 8; ``groupnorm_silu`` and ``block_norm_silu``, the
+   default Block's chain on the same kernel, with and without FiLM; every
    kernel's largest shape also at b = 16, the batch class CFG gives) in
    bfloat16 and float32 (the four tensor-core kernels, ``attention``,
    ``linattn_block``, ``attn_block`` and the linear-attention cores, also at
    ragged n, where their 64-row tiles end in a masked tail), with max-abs
-   and rms error (``groupnorm_silu`` also called twice on the same inputs,
-   which must give the same bits), the
+   and rms error (``groupnorm_silu`` and ``block_norm_silu`` also called
+   twice on the same inputs, which must give the same bits), the
    CUDA-event times of both (the 50 MB L2 is flushed before every timed call)
    and the bound: the least time the card could take, the larger of the
    function's bytes (inputs read once, outputs written once) over the memory
@@ -159,11 +160,15 @@ Phases, each printed as one JSON line:
    per kernel name, per kernel of the port (summed over all its launches and
    shapes, and its device kernels per forward) and per group of PyTorch's
    own kernels, and the device time of single calls of ``linattn_block``,
-   ``attn_block``, ``linear_attention_qkv``, ``groupnorm_silu`` (one device
-   kernel a call) and ``attention`` beside SDPA's.
+   ``attn_block``, ``linear_attention_qkv``, ``groupnorm_silu`` and
+   ``block_norm_silu`` (one device kernel a call) and ``attention`` beside
+   SDPA's.
 
-Every launch count is set to 0 just before a path is driven and read just
-after. Then the kernel summary and, last, the device line. Exits non-zero,
+Where a phase counts "6 / 3" launches a forward (``linattn_block`` /
+``attn_block``), a forward of a default net with autograd recording nothing
+(every sampler) also launches ``block_norm_silu`` once a Block (38 at full
+width), and a train forward none. Every launch count is set to 0 just
+before a path is driven and read just after. Then the kernel summary and, last, the device line. Exits non-zero,
 before building anything, when no CUDA device is visible, and on any failure.
 There is no CPU mode; the phase functions take a device and sizes so the
 tests can rehearse them at a tiny size on the CPU.
@@ -218,6 +223,10 @@ KERNELS = {
                    'attn_block.cu', 'attn_block', 'launches'),
     'groupnorm_silu': ('srgd_tpu/kernels/groupnorm_silu.py:60',
                        'groupnorm_silu.cu', 'groupnorm_silu', 'launches'),
+    # not a Pallas kernel: the default Block's float32 chain (group_norm,
+    # FiLM, SiLU), whenever autograd records nothing
+    'block_norm_silu': ('srgd_tpu/nn/layers.py:206', 'groupnorm_silu.cu',
+                        'groupnorm_silu', 'launches_block'),
     'attention': ('srgd_tpu/kernels/attention.py:53',
                   'attention.cu', 'attention', 'launches'),
     'linear_attention': ('srgd_tpu/kernels/linear_attention.py:90',
@@ -235,6 +244,8 @@ KERNELS = {
     'quantize_act': ('srgd_tpu/nn/quant.py:160', 'quant_act.cu', 'quant_act',
                      'launches'),
 }
+# the entries of groupnorm_silu.cu's kernel, which repeat their bits
+GN_KERNELS = ('groupnorm_silu', 'block_norm_silu')
 # the phases whose launches count as the main paths' in the summary
 MAIN_PATHS = ('slice', 'slice_pallas', 'deep_cache', 'families', 'serve',
               'train', 'int8', 'mesh', 'quality', 'convert')
@@ -385,23 +396,27 @@ def kernel_cases(torch, device, b, gen, *, lin_shapes, attn_shapes, gn_shapes,
         gamma, beta = 1 + randn(c, scale=0.1), randn(c, scale=0.1)
         with_film = randn(b, 2, c, scale=0.2)
 
-        # each ResnetBlock's block1 carries a FiLM, its block2 none
-        for film in (with_film, None):
+        # each ResnetBlock's block1 carries a FiLM, its block2 none; the
+        # use_pallas Block's folded arithmetic and the default Block's
+        for (kind, kern, plain), film in itertools.product(
+                (('groupnorm_silu', gs.groupnorm_silu,
+                  gs.groupnorm_silu_plain),
+                 ('block_norm_silu', gs.block_norm_silu,
+                  gs.block_norm_silu_plain)), (with_film, None)):
             def make(dtype, rows=rows, c=c, x32=x32, gamma=gamma, beta=beta,
-                     film=film):
+                     film=film, kern=kern, plain=plain):
                 x = x32.to(dtype)
                 # x in, out, film and the affine; about 10 float operations
                 # an element (two for the statistics, eight to normalise and
                 # SiLU)
                 return dict(
-                    kern=lambda: gs.groupnorm_silu(x, gamma, beta, film),
-                    plain=lambda: gs.groupnorm_silu_plain(x, gamma, beta, film),
+                    kern=lambda: kern(x, gamma, beta, film),
+                    plain=lambda: plain(x, gamma, beta, film),
                     bytes=(2 * b * rows * c * es(dtype) + 8 * c
                            + (0 if film is None else 8 * b * c)),
                     flops=10 * b * rows * c, flops_dtype='float32')
 
-            yield ('groupnorm_silu',
-                   {'n': rows, 'c': c, 'film': film is not None}, make)
+            yield kind, {'n': rows, 'c': c, 'film': film is not None}, make
 
     for n in flash_shapes:
         qkv32 = randn(b, n, 3, 4, 32)
@@ -486,10 +501,10 @@ def phase_kernels(torch, device, *, b=8, lin_shapes=LINATTN_SHAPES,
             name = str(dtype).replace('torch.', '')
             case = make(dtype)
             got, want = case['kern']().float(), case['plain']().float()
-            # groupnorm_silu adds its partials in a fixed order: a second
-            # call on the same inputs gives the same bits
+            # groupnorm_silu's kernel adds its partials in a fixed order: a
+            # second call on the same inputs gives the same bits
             repeat = (bool(torch.equal(case['kern']().float(), got))
-                      if kind == 'groupnorm_silu' else None)
+                      if kind in GN_KERNELS else None)
             if device.type == 'cuda':
                 torch.cuda.synchronize()
             err = (got - want).abs().max().item()
@@ -555,9 +570,10 @@ def build_family(torch, device, model, *, seed=0, **overrides):
     return get_model(conf, ckpt_path='', device=device)[0]
 
 
-def _per_forward(mods) -> dict:
+def _per_forward(mods, grad: bool = False) -> dict:
     """Launches of each kernel that one pass through the modules ``mods``
-    makes: one per module that routes to it."""
+    makes: one per module that routes to it. ``grad``: autograd records the
+    pass (training), so a default Block runs its PyTorch chain."""
     from srgd_tpu_torch.nn.layers import Attention, Block, LinearAttention
     from srgd_tpu_torch.nn.quant import QuantConv
     blocks = [m for m in mods if isinstance(m, Block)]
@@ -571,6 +587,8 @@ def _per_forward(mods) -> dict:
         'linattn_block': len(linear) - len(unfused),
         'attn_block': len(full) - len(to_flash),
         'groupnorm_silu': sum(m.use_pallas for m in blocks),
+        'block_norm_silu': 0 if grad else sum(not m.use_pallas
+                                              for m in blocks),
         'attention': len(to_flash),
         'linear_attention': 0,
         'linear_attention_qkv': len(unfused),
@@ -590,13 +608,13 @@ def _dynamic(m) -> bool:
     return m.calibrating or stat is None
 
 
-def _cached_per_forward(net, depth: int) -> dict:
+def _cached_per_forward(net, depth: int, grad: bool = False) -> dict:
     """Launches of a DeepCache forward at ``depth``: the encoder and decoder
     stages below it and the final block; no mid block."""
     stages = len(net.downs)
     mods = [m for part in (*net.downs[:depth], *net.ups[stages - depth:],
                            net.final_res_block) for m in part.modules()]
-    return _per_forward(mods)
+    return _per_forward(mods, grad)
 
 
 def _expected_launches(net, forwards: int, cached: int = 0,
@@ -1883,7 +1901,7 @@ def phase_train(torch, device, *, conf=TRAIN_YAML, images=40, image_size=320,
                 out_dir, '--save_every', str(save_every), '--log_every', '1',
                 '--device', 'cuda:0' if on_card else 'cpu']
         per_forward = _per_forward(list(build_unet_from_config(
-            cfg, device='meta').modules()))
+            cfg, device='meta').modules()), grad=True)
         checks = {}
 
         # the main path: `steps` steps from scratch
@@ -2385,6 +2403,8 @@ class _ForwardLedger:
         self._of = weakref.WeakKeyDictionary()
 
     def __enter__(self):
+        import torch
+
         from srgd_tpu_torch.nn.quant import quant_convs
         from srgd_tpu_torch.nn.unet import SRUnet
         self._cls, self._real = SRUnet, SRUnet.forward
@@ -2398,8 +2418,9 @@ class _ForwardLedger:
                 ledger.calibration += 1
                 return out
             cached = kw.get('deep_cache') is not None
-            want = (_cached_per_forward(net, kw['cache_depth']) if cached
-                    else _per_forward(list(net.modules())))
+            grad = torch.is_grad_enabled()
+            want = (_cached_per_forward(net, kw['cache_depth'], grad)
+                    if cached else _per_forward(list(net.modules()), grad))
             rec = ledger._of.get(net)
             if rec is None:
                 rec = ledger._of[net] = {
@@ -2863,6 +2884,9 @@ DEVICE_KERNELS = {
     'out_rows_mma': 'linear_attention_qkv', 'int8_conv_kernel': 'int8_conv',
     'int8_conv_wgmma': 'int8_conv', 'act_amax_partial': 'act_amax',
     'act_amax_final': 'act_amax', 'quantize_act_kernel': 'quantize_act'}
+# the template arguments that end groupnorm_silu_fused's instance for the
+# default Block (csrc/groupnorm_silu.cu, BLOCK = true)
+BLOCK_INSTANCE = ', true>('
 # PyTorch's device kernels that mark QuantConv's activation quantize in
 # PyTorch ops (abs before the amax, round before the clip; the clip's clamp
 # kernel is RMSNorm's too): an int8 forward on the card must launch none
@@ -2922,18 +2946,24 @@ def _by_function(rows) -> dict:
     return out
 
 
-def _owner(fn: str, merge_owner: str):
-    """The port's kernel a device kernel belongs to, or None; the partial
-    merge that two of them share goes to ``merge_owner``, the one the
-    profiled net routes to."""
-    return merge_owner if fn == 'merge_kv_partials' else DEVICE_KERNELS.get(fn)
+def _owner(key: str, merge_owner: str):
+    """The port's kernel a device kernel (profiler key) belongs to, or None;
+    the partial merge that two of them share goes to ``merge_owner``, the
+    one the profiled net routes to, and ``groupnorm_silu_fused``'s BLOCK
+    instance to ``block_norm_silu``."""
+    fn = _function(key)
+    if fn == 'merge_kv_partials':
+        return merge_owner
+    if fn == 'groupnorm_silu_fused' and BLOCK_INSTANCE in key:
+        return 'block_norm_silu'
+    return DEVICE_KERNELS.get(fn)
 
 
 def _launches_by_kernel(rows, merge_owner: str) -> dict:
     """Device kernels per call (per forward) of each of the port's kernels."""
     out = {}
     for _, calls, key in rows:
-        owner = _owner(_function(key), merge_owner)
+        owner = _owner(key, merge_owner)
         if owner is not None:
             out[owner] = out.get(owner, 0) + calls
     return out
@@ -2945,7 +2975,7 @@ def _by_kernel(rows, merge_owner: str) -> dict:
     out = {}
     for ms, calls, key in rows:
         fn = _function(key)
-        owner = _owner(fn, merge_owner)
+        owner = _owner(key, merge_owner)
         if owner is not None:
             entry = out.setdefault(owner, {'ms': 0.0, 'device_kernels': {}})
             entry['ms'] += ms
@@ -3129,17 +3159,19 @@ def phase_profile(torch, device, *, tile_size=256, batch_size=8, seed=0,
         film = torch.randn((batch_size, 2, c), generator=gen,
                            device=device) * 0.2
         g, z = torch.ones(c, device=device), torch.zeros(c, device=device)
-        name = f'groupnorm_silu_{rows}_{c}'
-        device_split(name, lambda: gs.groupnorm_silu(xs, g, z, film))
+        for kind, kern in (('groupnorm_silu', gs.groupnorm_silu),
+                           ('block_norm_silu', gs.block_norm_silu)):
+            device_split(f'{kind}_{rows}_{c}',
+                         lambda: kern(xs, g, z, film))
     res['standalone_device_ms'] = standalone
     res['standalone_by_device_kernel'] = split
     res['standalone_device_kernels_per_call'] = per_call
     res['records_lost_at_session_start'] = lost
-    # one device kernel a groupnorm_silu call (the CPU runs plain ops), and
-    # every session's dropped records inside its padding
+    # one device kernel a groupnorm_silu or block_norm_silu call (the CPU
+    # runs plain ops), and every session's dropped records inside its padding
     res['ok'] = ok and (not on_card or (all(
         n == 1 for name, n in per_call.items()
-        if name.startswith('groupnorm_silu')) and max(lost) < PROFILE_PAD))
+        if name.startswith(GN_KERNELS)) and max(lost) < PROFILE_PAD))
     return res
 
 

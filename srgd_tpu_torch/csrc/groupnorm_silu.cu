@@ -45,6 +45,14 @@
 //   the folding block zeroes its arrival counter, the last block to leave
 //   zeroes the ticket and exit counters, and flags hold a generation number
 //   that the wrapper bumps every call, so they need no reset.
+// - A second instance (BLOCK) is the default U-Net Block's chain, which the
+//   JAX package runs unfused (srgd_tpu/nn/layers.py: group_norm, then FiLM,
+//   then SiLU, in float32): the same plan, counters and statistics, but the
+//   fold publishes the group mean and 1 / sqrt(var + eps) per (sample,
+//   group), and the apply reads gamma, beta and the FiLM per channel and
+//   keeps that chain's order,
+//     y = ((x - mean) * inv * gamma + beta) * (fs + 1) + fb
+//   out = y * sigmoid(y), cast once to x's dtype.
 // - Caching hints: statistics loads carry an L2 evict_last policy, apply
 //   loads (x's last use) and output stores stream (.cs), so the output does
 //   not push x out of the L2. Loads are 16-byte vectors over consecutive
@@ -266,6 +274,8 @@ __device__ __forceinline__ float film_at(const void* film, int film_bf16, size_t
                    : static_cast<const float*>(film)[i];
 }
 
+// BLOCK: ss[0][g] = mean_g, ss[1][g] = inv_g instead (2 groups floats).
+template <bool BLOCK>
 __device__ __forceinline__ void fold(const float* __restrict__ ps, const float* __restrict__ gamma,
                                      const float* __restrict__ beta, const void* film,
                                      int film_bf16, float* __restrict__ ss, float* sm, int s,
@@ -274,9 +284,11 @@ __device__ __forceinline__ void fold(const float* __restrict__ ps, const float* 
   const int nsub = max(1, THREADS / nv);
   float* sub_sums = sm;
   float* sums = nsub > 1 ? sm + nsub * nv : sm;
-  for (int ch = threadIdx.x; ch < c; ch += THREADS) {  // needed after the sums
-    asm volatile("prefetch.global.L1 [%0];\n" ::"l"(gamma + ch));
-    asm volatile("prefetch.global.L1 [%0];\n" ::"l"(beta + ch));
+  if (!BLOCK) {
+    for (int ch = threadIdx.x; ch < c; ch += THREADS) {  // needed after the sums
+      asm volatile("prefetch.global.L1 [%0];\n" ::"l"(gamma + ch));
+      asm volatile("prefetch.global.L1 [%0];\n" ::"l"(beta + ch));
+    }
   }
   for (int idx = threadIdx.x; idx < nv * nsub; idx += THREADS) {
     const int v = idx % nv, sub = idx / nv;
@@ -303,6 +315,15 @@ __device__ __forceinline__ void fold(const float* __restrict__ ps, const float* 
   __syncthreads();
   const int cg = c / groups;
   const float count = (float)rows * (float)cg;
+  if (BLOCK) {
+    for (int g = threadIdx.x; g < groups; g += THREADS) {
+      const float mean = __fdiv_rn(sums[g], count);
+      const float var = __fsub_rn(__fdiv_rn(sums[groups + g], count), __fmul_rn(mean, mean));
+      ss[g] = mean;
+      ss[groups + g] = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, eps)));
+    }
+    return;
+  }
   for (int ch = threadIdx.x; ch < c; ch += THREADS) {
     const int g = ch / cg;
     // rounding pinned by the _rn intrinsics: the compiler may not contract
@@ -375,6 +396,59 @@ __device__ __forceinline__ void apply_tile(const Pack<T, VEC>* __restrict__ xs,
   }
 }
 
+// One apply tile of the BLOCK instance: from the sample's group mean and
+// inv (mi: [0][g] mean, [1][g] inv), gamma, beta and the sample's FiLM
+// (film_s: [0][ch] scale, [1][ch] shift, or null), over rows [r0, r1),
+//   y = ((x - mean) * inv * gamma + beta) * (fs + 1) + fb,  out = y * sigmoid(y)
+// in the layout of apply_tile; each thread's channels and their six floats
+// stay fixed over the tile.
+template <typename T, int VEC>
+__device__ __forceinline__ void apply_tile_block(const Pack<T, VEC>* __restrict__ xs,
+                                                 const float* __restrict__ mi,
+                                                 const float* __restrict__ gamma,
+                                                 const float* __restrict__ beta,
+                                                 const void* film_s, int film_bf16,
+                                                 Pack<T, VEC>* __restrict__ os, int r0, int r1,
+                                                 int c, int groups) {
+  const int cv = c / VEC, cg = c / groups;
+  const int cols = min(cv, THREADS);
+  const int lanes = THREADS / cols;
+  const int tx = threadIdx.x % cols, ty = threadIdx.x / cols;
+  if (ty >= lanes) return;
+  for (int col = tx; col < cv; col += cols) {
+    float mean[VEC], inv[VEC], ga[VEC], be[VEC], fs[VEC], fb[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      const int ch = col * VEC + e, g = ch / cg;
+      mean[e] = __ldcg(mi + g);  // written by another block in this launch
+      inv[e] = __ldcg(mi + groups + g);
+      ga[e] = __ldg(gamma + ch);
+      be[e] = __ldg(beta + ch);
+      fs[e] = film_s != nullptr ? film_at(film_s, film_bf16, ch) + 1.0f : 1.0f;
+      fb[e] = film_s != nullptr ? film_at(film_s, film_bf16, c + ch) : 0.0f;
+    }
+    auto one = [&](const Pack<T, VEC>& p, Pack<T, VEC>* dst) {
+      Pack<T, VEC> o;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        float y = __fmul_rn(__fsub_rn(to_f32<T>(p.v[e]), mean[e]), inv[e]);
+        y = fmaf(fmaf(y, ga[e], be[e]), fs[e], fb[e]);
+        o.v[e] = from_f32<T>(y * __fdividef(1.0f, 1.0f + __expf(-y)));
+      }
+      store_stream(dst, o);
+    };
+    int r = r0 + ty;
+    for (; r + (UNROLL - 1) * lanes < r1; r += UNROLL * lanes) {
+      Pack<T, VEC> p[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) p[u] = load_last(xs + (size_t)(r + u * lanes) * cv + col);
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) one(p[u], os + (size_t)(r + u * lanes) * cv + col);
+    }
+    for (; r < r1; r += lanes) one(load_last(xs + (size_t)r * cv + col), os + (size_t)r * cv + col);
+  }
+}
+
 // Shared memory of a block, in floats: the row lanes' sums (none with one
 // lane) and the per-channel sums of a statistics tile; the fold reuses it.
 __host__ __device__ __forceinline__ int red_floats(int c, int vec) {
@@ -390,10 +464,10 @@ __host__ __device__ __forceinline__ int smem_floats(int c, int groups, int vec) 
 // state: [0] ticket, [1] blocks that left, [2, 2 + cap) arrival counters,
 // [2 + cap, 2 + 2 cap) ready flags (the generation number of the call that
 // last folded the sample). part: (b, ntile, 2, groups) floats; ss: (b, 2, c)
-// floats (scale, shift). A block holds its current item and the next ticket,
-// drawn at the start of the item and read at its end, so the draw's latency
-// falls inside the item.
-template <typename T, int VEC>
+// floats (scale, shift), or with BLOCK (b, 2, groups) floats (mean, inv). A
+// block holds its current item and the next ticket, drawn at the start of
+// the item and read at its end, so the draw's latency falls inside the item.
+template <typename T, int VEC, bool BLOCK>
 __global__ void __launch_bounds__(THREADS, 2)
 groupnorm_silu_fused(const T* __restrict__ x, const float* __restrict__ gamma,
                      const float* __restrict__ beta, const void* film, float* __restrict__ part,
@@ -408,6 +482,7 @@ groupnorm_silu_fused(const T* __restrict__ x, const float* __restrict__ gamma,
   int* flag = state + 2 + cap;
   const int total = 2 * b * ntile;
   const int cv = c / VEC, nv = 2 * groups;
+  const int ssn = BLOCK ? nv : 2 * c;  // floats of ss a sample
   float* chsum = sm + red_floats(c, VEC);
   const uint64_t policy = evict_last_policy();
   const Pack<T, VEC>* xv = reinterpret_cast<const Pack<T, VEC>*>(x);
@@ -432,9 +507,9 @@ groupnorm_silu_fused(const T* __restrict__ x, const float* __restrict__ gamma,
         s_last = atom_add_acq_rel(arrive + s, 1) == ntile - 1;
       __syncthreads();
       if (s_last) {
-        fold(part + (size_t)s * ntile * nv, gamma, beta, film, film_bf16, ss + (size_t)s * 2 * c,
-             sm, s, rows, c, groups, ntile, eps);
-        __syncthreads();  // (scale, shift) written by every thread
+        fold<BLOCK>(part + (size_t)s * ntile * nv, gamma, beta, film, film_bf16,
+                    ss + (size_t)s * ssn, sm, s, rows, c, groups, ntile, eps);
+        __syncthreads();  // (scale, shift) or (mean, inv) written by every thread
         if (threadIdx.x == 0) {  // the release orders the block's writes before it
           arrive[s] = 0;
           st_release(flag + s, gen);
@@ -449,7 +524,15 @@ groupnorm_silu_fused(const T* __restrict__ x, const float* __restrict__ gamma,
         }
       }
       __syncthreads();
-      apply_tile<T, VEC>(xv + base, ss + (size_t)s * 2 * c, ov + base, r0, r1, c);
+      if (BLOCK) {
+        const void* film_s = nullptr;
+        if (film != nullptr)
+          film_s = static_cast<const char*>(film) + (size_t)s * 2 * c * (film_bf16 ? 2 : 4);
+        apply_tile_block<T, VEC>(xv + base, ss + (size_t)s * ssn, gamma, beta, film_s, film_bf16,
+                                 ov + base, r0, r1, c, groups);
+      } else {
+        apply_tile<T, VEC>(xv + base, ss + (size_t)s * ssn, ov + base, r0, r1, c);
+      }
     }
     if (threadIdx.x == 0) s_next = next;
     __syncthreads();
@@ -462,13 +545,13 @@ groupnorm_silu_fused(const T* __restrict__ x, const float* __restrict__ gamma,
   }
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, bool BLOCK>
 int launch(const void* x, const void* gamma, const void* beta, const void* film, void* part,
            void* ss, void* out, void* state, int b, int rows, int c, int groups, int tile_rows,
            int ntile, int lead, int grid, int gen, int cap, int film_bf16, float eps,
            void* stream) {
-  groupnorm_silu_fused<T, VEC><<<grid, THREADS, sizeof(float) * smem_floats(c, groups, VEC),
-                                 static_cast<cudaStream_t>(stream)>>>(
+  groupnorm_silu_fused<T, VEC, BLOCK><<<grid, THREADS, sizeof(float) * smem_floats(c, groups, VEC),
+                                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const float*>(gamma),
       static_cast<const float*>(beta), film, static_cast<float*>(part), static_cast<float*>(ss),
       static_cast<T*>(out), static_cast<int*>(state), b, rows, c, groups, tile_rows, ntile, lead,
@@ -476,29 +559,44 @@ int launch(const void* x, const void* gamma, const void* beta, const void* film,
   return cudaGetLastError();
 }
 
+// The 16-byte or the one-element instance of T.
+template <typename T, bool BLOCK>
+int dispatch(const void* x, const void* gamma, const void* beta, const void* film, void* part,
+             void* ss, void* out, void* state, int b, int rows, int c, int groups, int tile_rows,
+             int ntile, int lead, int grid, int gen, int cap, int film_bf16, int vectorised,
+             float eps, void* stream) {
+  constexpr int VEC = 16 / sizeof(T);
+  return vectorised ? launch<T, VEC, BLOCK>(x, gamma, beta, film, part, ss, out, state, b, rows,
+                                            c, groups, tile_rows, ntile, lead, grid, gen, cap,
+                                            film_bf16, eps, stream)
+                    : launch<T, 1, BLOCK>(x, gamma, beta, film, part, ss, out, state, b, rows, c,
+                                          groups, tile_rows, ntile, lead, grid, gen, cap,
+                                          film_bf16, eps, stream);
+}
+
 }  // namespace
 
 // x, out: (b, rows, c) contiguous in T; gamma, beta: (c,) float; film: null
 // or (b, 2, c) contiguous, float or (film_bf16 != 0) bfloat16 ([:, 0] scale,
-// [:, 1] shift). Scratch (float): part (b, ntile, 2, groups), ss (b, 2, c).
+// [:, 1] shift). Scratch (float): part (b, ntile, 2, groups), ss (b, 2, c)
+// (srgd_groupnorm_silu_*) or (b, 2, groups) (srgd_block_norm_silu_*).
 // state: 2 + 2 * cap ints, zero before the first call on a stream and left
 // so by every call; cap >= b; gen differs from the previous call's.
 // vectorised != 0 needs c % 4 == 0 (float) or c % 8 == 0 (bfloat16) and x,
 // out 16-byte aligned. Requires c % groups == 0, c <= 4096,
 // rows * c < 2^31, ntile * tile_rows >= rows > (ntile - 1) * tile_rows,
 // ntile <= lead <= b * ntile and 2 * b * ntile < 2^31.
+// GroupNorm's affine and the FiLM folded into one (scale, shift): the Pallas
+// kernel's arithmetic, for use_pallas Blocks.
 extern "C" int srgd_groupnorm_silu_f32(const void* x, const void* gamma, const void* beta,
                                        const void* film, void* part, void* ss, void* out,
                                        void* state, int b, int rows, int c, int groups,
                                        int tile_rows, int ntile, int lead, int grid, int gen,
                                        int cap, int film_bf16, int vectorised, float eps,
                                        void* stream) {
-  return vectorised ? launch<float, 4>(x, gamma, beta, film, part, ss, out, state, b, rows, c,
-                                       groups, tile_rows, ntile, lead, grid, gen, cap, film_bf16,
-                                       eps, stream)
-                    : launch<float, 1>(x, gamma, beta, film, part, ss, out, state, b, rows, c,
-                                       groups, tile_rows, ntile, lead, grid, gen, cap, film_bf16,
-                                       eps, stream);
+  return dispatch<float, false>(x, gamma, beta, film, part, ss, out, state, b, rows, c,
+                                groups, tile_rows, ntile, lead, grid, gen, cap, film_bf16,
+                                vectorised, eps, stream);
 }
 
 extern "C" int srgd_groupnorm_silu_bf16(const void* x, const void* gamma, const void* beta,
@@ -507,11 +605,30 @@ extern "C" int srgd_groupnorm_silu_bf16(const void* x, const void* gamma, const 
                                         int tile_rows, int ntile, int lead, int grid, int gen,
                                         int cap, int film_bf16, int vectorised, float eps,
                                         void* stream) {
-  using bf16 = __nv_bfloat16;
-  return vectorised ? launch<bf16, 8>(x, gamma, beta, film, part, ss, out, state, b, rows, c,
-                                      groups, tile_rows, ntile, lead, grid, gen, cap, film_bf16,
-                                      eps, stream)
-                    : launch<bf16, 1>(x, gamma, beta, film, part, ss, out, state, b, rows, c,
-                                      groups, tile_rows, ntile, lead, grid, gen, cap, film_bf16,
-                                      eps, stream);
+  return dispatch<__nv_bfloat16, false>(x, gamma, beta, film, part, ss, out, state, b, rows, c,
+                                        groups, tile_rows, ntile, lead, grid, gen, cap, film_bf16,
+                                        vectorised, eps, stream);
+}
+
+// The default Block's unfolded chain.
+extern "C" int srgd_block_norm_silu_f32(const void* x, const void* gamma, const void* beta,
+                                        const void* film, void* part, void* ss, void* out,
+                                        void* state, int b, int rows, int c, int groups,
+                                        int tile_rows, int ntile, int lead, int grid, int gen,
+                                        int cap, int film_bf16, int vectorised, float eps,
+                                        void* stream) {
+  return dispatch<float, true>(x, gamma, beta, film, part, ss, out, state, b, rows, c,
+                               groups, tile_rows, ntile, lead, grid, gen, cap, film_bf16,
+                               vectorised, eps, stream);
+}
+
+extern "C" int srgd_block_norm_silu_bf16(const void* x, const void* gamma, const void* beta,
+                                         const void* film, void* part, void* ss, void* out,
+                                         void* state, int b, int rows, int c, int groups,
+                                         int tile_rows, int ntile, int lead, int grid, int gen,
+                                         int cap, int film_bf16, int vectorised, float eps,
+                                         void* stream) {
+  return dispatch<__nv_bfloat16, true>(x, gamma, beta, film, part, ss, out, state, b, rows, c,
+                                       groups, tile_rows, ntile, lead, grid, gen, cap, film_bf16,
+                                       vectorised, eps, stream);
 }

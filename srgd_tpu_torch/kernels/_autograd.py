@@ -49,16 +49,17 @@ def recompute_backward(name, plain, inputs, needs, grad_out, **kw):
 
 class _ForwardOnly(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, name, fn, *inputs):
-        ctx.name = name
+    def forward(ctx, message, fn, *inputs):
+        ctx.message = message
         return fn(*inputs)
 
     @staticmethod
     def backward(ctx, *grads):
-        raise RuntimeError(NO_GRADIENT.format(name=ctx.name))
+        raise RuntimeError(ctx.message)
 
 
-def forward_only(name: str, fn, *inputs):
-    """``fn(*inputs)`` through a Function whose backward raises
-    :data:`NO_GRADIENT`; forward-only callers see no difference."""
-    return _ForwardOnly.apply(name, fn, *inputs)
+def forward_only(name: str, fn, *inputs, message: str = NO_GRADIENT):
+    """``fn(*inputs)`` through a Function whose backward raises ``message``
+    (:data:`NO_GRADIENT` by default) with ``name`` filled in; forward-only
+    callers see no difference."""
+    return _ForwardOnly.apply(message.format(name=name), fn, *inputs)

@@ -18,6 +18,14 @@ run to run); 16-byte loads over consecutive channels of the channels-last
 activation; no float32 copy of the activation anywhere. The kernel's
 counters live in a small buffer per device and stream (``_state``), zeroed
 once and left zero by every call. Times at the flagship shapes: PERF.md.
+
+``block_norm_silu`` is the same kernel with the default ``Block``'s
+arithmetic, which the JAX package runs unfused (``group_norm``, FiLM, SiLU
+in ``srgd_tpu/nn/layers.py``): the fold publishes the group mean and
+``rsqrt(var + eps)``, and the apply computes
+``((x - mean) * inv * gamma + beta) * (fs + 1) + fb`` and its SiLU per
+element, cast once to x's dtype. ``Block`` calls it whenever autograd
+records nothing (the samplers run under ``torch.inference_mode``).
 """
 
 from __future__ import annotations
@@ -27,7 +35,13 @@ import torch
 from srgd_tpu_torch.kernels import _build
 from srgd_tpu_torch.kernels._autograd import forward_only
 
+NO_BLOCK_GRADIENT = (
+    '{name} has no gradient kernel: Block calls it only when autograd '
+    'records nothing (torch.is_grad_enabled() false) and runs the float32 '
+    'PyTorch chain when it does.')
+
 launches = 0   # kernel launches through groupnorm_silu (never the plain version)
+launches_block = 0   # kernel launches through block_norm_silu
 
 TILE_BYTES = 64 << 10  # bytes of x a work item reads, at most
 MIN_TILE_ROWS = 16     # a work item covers at least this many rows (bytes allowing)
@@ -61,6 +75,38 @@ def groupnorm_silu_plain(x, gamma, beta, film=None, *, groups: int = 8,
         fs = film[:, 0].float() + 1.0
         scale, shift = scale * fs, shift * fs + film[:, 1].float()
     y = xf * scale[:, None] + shift[:, None]
+    return (y * torch.sigmoid(y)).to(x.dtype).reshape(x.shape)
+
+
+def block_norm_silu_plain(x, gamma, beta, film=None, *, groups: int = 8,
+                          eps: float = 1e-5):
+    """Plain PyTorch version of ``block_norm_silu``, in the JAX default
+    Block's float32 arithmetic: the group mean and
+    ``rsqrt(E[x^2] - mean^2 + eps)`` from float32 sums, then
+    ``((x - mean) * inv * gamma + beta) * (fs + 1) + fb`` and
+    ``y * sigmoid(y)``, cast once to x's dtype.
+
+    The statistics are PyTorch's GroupNorm moments of the channels-last
+    activation: float32 sums and ``E[x^2] - mean^2``, which on the CPU come
+    out as the JAX package's one-hot matmuls round them, bit for bit in most
+    groups. Where a group's mean is large against its spread the formula
+    cancels, and the order of the sums then shows in the result; a float32
+    sum over the rows, rounded at every row, lies further from both."""
+    b, c = x.shape[0], x.shape[-1]
+    xf = x.reshape(b, -1, c).float()
+    rows = xf.shape[1]
+    # (b, c, rows, 1) in channels-last memory, as Block holds the activation;
+    # PyTorch's CUDA moments take it in NCHW memory
+    x4 = xf.reshape(b, rows, 1, c).permute(0, 3, 1, 2)
+    if x.device.type != 'cpu':
+        x4 = x4.contiguous()
+    _, mean, inv = torch.ops.aten.native_group_norm(x4, None, None, b, c,
+                                                    rows, groups, eps)
+    mean, inv = (t.repeat_interleave(c // groups, dim=1)[:, None]
+                 for t in (mean, inv))
+    y = (xf - mean) * inv * gamma.float() + beta.float()
+    if film is not None:
+        y = y * (film[:, 0, None].float() + 1) + film[:, 1, None].float()
     return (y * torch.sigmoid(y)).to(x.dtype).reshape(x.shape)
 
 
@@ -126,23 +172,26 @@ def _state(dev, stream: int, b: int):
     return entry
 
 
-def _launch(x, gamma, beta, film, groups, eps):
-    global launches
+def _launch(x, gamma, beta, film, groups, eps, block=False):
+    """One launch of the kernel: ``groupnorm_silu``'s arithmetic, or with
+    ``block`` ``block_norm_silu``'s."""
+    global launches, launches_block
+    what = 'block_norm_silu' if block else 'groupnorm_silu'
     if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f'groupnorm_silu kernel takes float32 or bfloat16, '
+        raise TypeError(f'{what} kernel takes float32 or bfloat16, '
                         f'got {x.dtype}')
     if x.dim() < 3:
-        raise ValueError('groupnorm_silu takes x of shape (b, ..., c)')
+        raise ValueError(f'{what} takes x of shape (b, ..., c)')
     if not x.is_contiguous():
         raise ValueError(
-            'groupnorm_silu kernel needs x contiguous with the channel last '
+            f'{what} kernel needs x contiguous with the channel last '
             '(the NHWC view of a channels_last activation); it does not copy')
     b, c = x.shape[0], x.shape[-1]
     rows = x.numel() // (b * c) if b * c else 0
     if rows == 0:
-        raise ValueError(f'groupnorm_silu: empty input {tuple(x.shape)}')
+        raise ValueError(f'{what}: empty input {tuple(x.shape)}')
     if c % groups or c > 4096 or rows * c >= 2 ** 31:
-        raise ValueError(f'groupnorm_silu kernel needs c divisible by groups, '
+        raise ValueError(f'{what} kernel needs c divisible by groups, '
                          f'c <= 4096 and rows * c < 2**31; got c {c}, groups '
                          f'{groups}, rows {rows}')
     dev = x.device
@@ -156,25 +205,27 @@ def _launch(x, gamma, beta, film, groups, eps):
         if film.device != dev or film.shape != (b, 2, c):
             raise ValueError('film must be (b, 2, c) on the device of x')
         if film.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f'groupnorm_silu film takes float32 or bfloat16, '
+            raise TypeError(f'{what} film takes float32 or bfloat16, '
                             f'got {film.dtype}')
         if not film.is_contiguous():
-            raise ValueError('groupnorm_silu needs film contiguous; it does '
+            raise ValueError(f'{what} needs film contiguous; it does '
                              'not copy')
         film_ptr, film_bf16 = film.data_ptr(), int(film.dtype == torch.bfloat16)
 
     tile_rows, ntile, lead, grid = _plan(b, rows, c, x.element_size(),
                                          _sms(dev))
     if 2 * b * ntile >= 2 ** 31:
-        raise ValueError(f'groupnorm_silu: batch {b} too large')
+        raise ValueError(f'{what}: batch {b} too large')
     part = torch.empty((b, ntile, 2, groups), device=dev, dtype=torch.float32)
-    ss = torch.empty((b, 2, c), device=dev, dtype=torch.float32)
+    # (scale, shift) per channel, or (mean, inv) per group
+    ss = torch.empty((b, 2, groups if block else c), device=dev,
+                     dtype=torch.float32)
     out = torch.empty_like(x)
     vec = 8 if x.dtype == torch.bfloat16 else 4
     vectorised = int(c % vec == 0 and x.data_ptr() % 16 == 0
                      and out.data_ptr() % 16 == 0)
-    name = ('srgd_groupnorm_silu_bf16' if x.dtype == torch.bfloat16
-            else 'srgd_groupnorm_silu_f32')
+    name = (f'srgd_{what}_bf16' if x.dtype == torch.bfloat16
+            else f'srgd_{what}_f32')
     fn = _build.entry(name, 8, 12, 1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -184,7 +235,10 @@ def _launch(x, gamma, beta, film, groups, eps):
                  state.data_ptr(), b, rows, c, groups, tile_rows, ntile, lead,
                  grid, gen, cap, film_bf16, vectorised, eps, stream)
     _build.check(err, name)
-    launches += 1
+    if block:
+        launches_block += 1
+    else:
+        launches += 1
     return out
 
 
@@ -203,10 +257,25 @@ def groupnorm_silu(x, gamma, beta, film=None, *, groups: int = 8,
                         x, gamma, beta, film)
 
 
-def _route(x, gamma, beta, film, groups, eps):
+def block_norm_silu(x, gamma, beta, film=None, *, groups: int = 8,
+                    eps: float = 1e-5):
+    """The default ``Block``'s GroupNorm -> FiLM -> SiLU in one launch, in
+    the JAX default Block's order and float32 arithmetic (module docstring).
+
+    Takes and returns what ``groupnorm_silu`` does; a CPU tensor takes
+    ``block_norm_silu_plain``, a CUDA tensor the kernel, which raises rather
+    than fall back or copy. Forward only: ``Block`` calls it when autograd
+    records nothing, and a backward through it raises."""
+    return forward_only('block_norm_silu',
+                        lambda *t: _route(*t, groups, eps, block=True),
+                        x, gamma, beta, film, message=NO_BLOCK_GRADIENT)
+
+
+def _route(x, gamma, beta, film, groups, eps, block=False):
     if x.device.type == 'cpu':
-        return groupnorm_silu_plain(x, gamma, beta, film, groups=groups,
-                                    eps=eps)
+        plain = block_norm_silu_plain if block else groupnorm_silu_plain
+        return plain(x, gamma, beta, film, groups=groups, eps=eps)
     if x.device.type == 'cuda':
-        return _launch(x, gamma, beta, film, groups, eps)
-    raise RuntimeError(f'groupnorm_silu: no kernel for device {x.device}')
+        return _launch(x, gamma, beta, film, groups, eps, block)
+    name = 'block_norm_silu' if block else 'groupnorm_silu'
+    raise RuntimeError(f'{name}: no kernel for device {x.device}')

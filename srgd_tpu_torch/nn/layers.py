@@ -23,6 +23,10 @@ kernels (``srgd_tpu_torch.kernels``) in every precision: on a CUDA tensor the
 CUDA kernel, on a CPU tensor its plain version. An NCHW ``channels_last``
 tensor viewed as (b, h*w, c) is the kernels' input with no copy.
 
+``Block`` runs GroupNorm -> FiLM -> SiLU as one ``block_norm_silu`` call
+whenever autograd records nothing (sampling), and in float32 PyTorch ops,
+which have a backward, when it does (training).
+
 ``use_pallas`` (the JAX modules' name for the flag, kept) selects the other
 kernel set, as ``srgd_tpu/nn/layers.py`` routes it: ``Block`` norms through
 ``groupnorm_silu``, ``LinearAttention`` runs RMSNorm -> to_qkv ->
@@ -49,7 +53,8 @@ from torch import nn
 
 from srgd_tpu_torch.kernels.attention import attention
 from srgd_tpu_torch.kernels.attn_block import attn_block
-from srgd_tpu_torch.kernels.groupnorm_silu import groupnorm_silu
+from srgd_tpu_torch.kernels.groupnorm_silu import (block_norm_silu,
+                                                   groupnorm_silu)
 from srgd_tpu_torch.kernels.linattn_block import linattn_block
 from srgd_tpu_torch.kernels.linear_attention import linear_attention_qkv
 
@@ -173,11 +178,32 @@ class ClassMLP(nn.Sequential):
 # Conv blocks
 # ---------------------------------------------------------------------------
 
+def _film(scale, shift):
+    """FiLM's scale and shift, each (b, c, 1, 1), as one (b, 2, c) tensor
+    with the scale first: a view where they are the two halves of one row,
+    as ``ResnetBlock`` chunks them from the time MLP's output, else
+    stacked."""
+    scale, shift = scale.flatten(1), shift.flatten(1)
+    b, c = scale.shape
+    if (scale.stride() == (2 * c, 1) and shift.stride() == scale.stride()
+            and shift.dtype == scale.dtype
+            and shift.untyped_storage().data_ptr()
+            == scale.untyped_storage().data_ptr()
+            and shift.data_ptr() == scale.data_ptr()
+            + c * scale.element_size()):
+        return scale.as_strided((b, 2, c), (2 * c, c, 1))
+    return torch.stack([scale, shift], dim=1)
+
+
 class Block(nn.Module):
     """conv3x3 -> GroupNorm(8) -> optional FiLM x*(scale+1)+shift -> SiLU.
-    Norm, FiLM and SiLU in float32; output in ``dtype``. With ``use_pallas``
-    everything after the conv is one ``groupnorm_silu`` call on the conv's
-    output in ``dtype``, with no float32 copy of the activation."""
+    Norm, FiLM and SiLU in float32; output in ``dtype``. Everything after
+    the conv is one kernel call on the conv's output in ``dtype``, with no
+    float32 copy of the activation: with ``use_pallas`` ``groupnorm_silu``
+    (the JAX Pallas kernel's folded arithmetic), else, whenever autograd
+    records nothing, ``block_norm_silu`` (the default chain's arithmetic).
+    With autograd recording, the default Block runs the chain in PyTorch
+    ops, which have a backward."""
 
     def __init__(self, dim: int, dim_out: int, groups: int = 8,
                  dtype=torch.float32, device=None, use_pallas: bool = False,
@@ -191,17 +217,13 @@ class Block(nn.Module):
 
     def forward(self, x, scale_shift=None):
         x = self.proj(x)
-        if self.use_pallas:
-            film = None
-            if scale_shift is not None:
-                scale, shift = scale_shift
-                film = torch.stack([scale[:, :, 0, 0], shift[:, :, 0, 0]],
-                                   dim=1)
+        if self.use_pallas or not torch.is_grad_enabled():
+            kernel = groupnorm_silu if self.use_pallas else block_norm_silu
+            film = None if scale_shift is None else _film(*scale_shift)
             # the NHWC view of the conv's channels_last output: no copy
-            out = groupnorm_silu(x.permute(0, 2, 3, 1), self.norm.weight,
-                                 self.norm.bias, film,
-                                 groups=self.norm.num_groups,
-                                 eps=self.norm.eps)
+            out = kernel(x.permute(0, 2, 3, 1), self.norm.weight,
+                         self.norm.bias, film, groups=self.norm.num_groups,
+                         eps=self.norm.eps)
             return out.permute(0, 3, 1, 2).to(self.dtype)
         x = group_norm(x, self.norm.weight, self.norm.bias,
                        self.norm.num_groups, self.norm.eps)

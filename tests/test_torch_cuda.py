@@ -69,11 +69,18 @@ def test_kernels_raise_on_shapes_they_do_not_take(cuda_device):
                       heads=4, dim_head=16)
 
 
+# groupnorm_silu.cu's two entries: the use_pallas Block's folded arithmetic
+# and the default Block's chain
+GN_ENTRIES = ('groupnorm_silu', 'block_norm_silu')
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize('entry', GN_ENTRIES)
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-def test_groupnorm_silu_scalar_path_and_no_film(cuda_device, dtype):
+def test_groupnorm_silu_scalar_path_and_no_film(cuda_device, dtype, entry):
     """c = 18 (no 16-byte vectors) and a misaligned base pointer both take
     the one-element path; film=None skips the FiLM."""
+    kern, plain = getattr(gs, entry), getattr(gs, entry + '_plain')
     g = torch.Generator(device=cuda_device).manual_seed(0)
     tol = 1e-4 if dtype == torch.float32 else 5e-2
     for c, groups, offset in ((18, 6, 0), (32, 8, 1)):
@@ -83,22 +90,25 @@ def test_groupnorm_silu_scalar_path_and_no_film(cuda_device, dtype):
         assert x.is_contiguous() and (offset == 0 or x.data_ptr() % 16)
         gamma = 1 + 0.1 * torch.randn(c, generator=g, device=cuda_device)
         beta = 0.1 * torch.randn(c, generator=g, device=cuda_device)
-        got = gs.groupnorm_silu(x, gamma, beta, groups=groups)
-        want = gs.groupnorm_silu_plain(x, gamma, beta, groups=groups)
+        got = kern(x, gamma, beta, groups=groups)
+        want = plain(x, gamma, beta, groups=groups)
         torch.cuda.synchronize()
         assert got.dtype == dtype and got.shape == x.shape
         assert (got.float() - want.float()).abs().max().item() <= tol
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('entry', GN_ENTRIES)
 @pytest.mark.parametrize('b', [1, 16])
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-def test_groupnorm_silu_ragged_rows_repeat_bitwise(cuda_device, dtype, b):
+def test_groupnorm_silu_ragged_rows_repeat_bitwise(cuda_device, dtype, b,
+                                                   entry):
     """Rows that are no multiple of the tile, at b = 1 (one sample: the
     apply waits on the whole statistics) and b = 16: inside the kernel
     tolerances, and a second call on the same inputs gives the same bits.
     A bfloat16 FiLM is read in its own dtype and gives the bits of the same
     values in float32."""
+    kern, plain = getattr(gs, entry), getattr(gs, entry + '_plain')
     g = torch.Generator(device=cuda_device).manual_seed(2)
     for rows, c in ((4096 + 40, 256), (1000, 128), (65536 + 8, 128)):
         x = (torch.randn(b, rows, c, generator=g, device=cuda_device) * 1.5
@@ -110,10 +120,10 @@ def test_groupnorm_silu_ragged_rows_repeat_bitwise(cuda_device, dtype, b):
         tile_rows, ntile, _, _ = gs._plan(b, rows, c, x.element_size(),
                                           gs._sms(cuda_device))
         assert ntile > 1 and rows % tile_rows
-        got = gs.groupnorm_silu(x, gamma, beta, film)
-        again = gs.groupnorm_silu(x, gamma, beta, film)
-        f32_film = gs.groupnorm_silu(x, gamma, beta, film.float())
-        want = gs.groupnorm_silu_plain(x, gamma, beta, film)
+        got = kern(x, gamma, beta, film)
+        again = kern(x, gamma, beta, film)
+        f32_film = kern(x, gamma, beta, film.float())
+        want = plain(x, gamma, beta, film)
         torch.cuda.synchronize()
         assert torch.equal(got, again) and torch.equal(got, f32_film)
         ref_max = want.float().abs().max().item()
@@ -137,10 +147,12 @@ def test_each_new_wrapper_counts_one_launch(cuda_device):
     la.linear_attention_qkv(qkv)
     la.linear_attention(x, x, x)
     torch.cuda.synchronize()
+    gs.block_norm_silu(x, ones, ones)
     assert chip_smoke.read_counts() == {
         'linattn_block': 0, 'attn_block': 0, 'groupnorm_silu': 1,
-        'attention': 1, 'linear_attention': 1, 'linear_attention_qkv': 1,
-        'int8_conv': 0, 'act_amax': 0, 'quantize_act': 0}
+        'block_norm_silu': 1, 'attention': 1, 'linear_attention': 1,
+        'linear_attention_qkv': 1, 'int8_conv': 0, 'act_amax': 0,
+        'quantize_act': 0}
 
 
 @pytest.mark.cuda
@@ -169,20 +181,21 @@ def test_new_kernels_raise_on_what_they_do_not_take(cuda_device):
     x = torch.zeros(2, 64, 128, device=cuda_device)
     ones = torch.ones(128, device=cuda_device)
     before = chip_smoke.read_counts()
-    with pytest.raises(ValueError, match='does not copy'):
-        gs.groupnorm_silu(x.transpose(1, 2), ones[:64], ones[:64])
-    with pytest.raises(TypeError, match='float32 or bfloat16'):
-        gs.groupnorm_silu(x.half(), ones, ones)
-    with pytest.raises(ValueError, match='divisible by groups'):
-        gs.groupnorm_silu(x, ones, ones, groups=7)
-    with pytest.raises(ValueError, match=r'film must be \(b, 2, c\)'):
-        gs.groupnorm_silu(x, ones, ones, torch.zeros(2, 128, device=cuda_device))
-    with pytest.raises(TypeError, match='film takes float32 or bfloat16'):
-        gs.groupnorm_silu(x, ones, ones,
-                          torch.zeros(2, 2, 128, device=cuda_device).half())
-    with pytest.raises(ValueError, match='film contiguous'):
-        gs.groupnorm_silu(x, ones, ones, torch.zeros(
-            2, 128, 2, device=cuda_device).transpose(1, 2))
+    for kern in (gs.groupnorm_silu, gs.block_norm_silu):
+        with pytest.raises(ValueError, match='does not copy'):
+            kern(x.transpose(1, 2), ones[:64], ones[:64])
+        with pytest.raises(TypeError, match='float32 or bfloat16'):
+            kern(x.half(), ones, ones)
+        with pytest.raises(ValueError, match='divisible by groups'):
+            kern(x, ones, ones, groups=7)
+        with pytest.raises(ValueError, match=r'film must be \(b, 2, c\)'):
+            kern(x, ones, ones, torch.zeros(2, 128, device=cuda_device))
+        with pytest.raises(TypeError, match='film takes float32 or bfloat16'):
+            kern(x, ones, ones,
+                 torch.zeros(2, 2, 128, device=cuda_device).half())
+        with pytest.raises(ValueError, match='film contiguous'):
+            kern(x, ones, ones, torch.zeros(
+                2, 128, 2, device=cuda_device).transpose(1, 2))
     q = torch.zeros(2, 4, 64, 16, device=cuda_device)
     with pytest.raises(ValueError, match='d = 32'):
         at.attention(q, q, q)
@@ -368,8 +381,9 @@ def test_bf16_redesigned_kernels_count_one_launch_each(cuda_device):
     torch.cuda.synchronize()
     assert chip_smoke.read_counts() == {
         'linattn_block': 0, 'attn_block': 1, 'groupnorm_silu': 0,
-        'attention': 0, 'linear_attention': 0, 'linear_attention_qkv': 1,
-        'int8_conv': 0, 'act_amax': 0, 'quantize_act': 0}
+        'block_norm_silu': 0, 'attention': 0, 'linear_attention': 0,
+        'linear_attention_qkv': 1, 'int8_conv': 0, 'act_amax': 0,
+        'quantize_act': 0}
 
 
 @pytest.mark.cuda
@@ -452,11 +466,82 @@ def test_backward_through_the_blocks_launches_no_kernel(cuda_device):
 
 @pytest.mark.cuda
 def test_forward_only_kernels_raise_on_backward_on_the_card(cuda_device):
-    x = torch.randn(2, 8, 8, 64, device=cuda_device, requires_grad=True)
-    out = gs.groupnorm_silu(x, torch.ones(64, device=cuda_device),
-                            torch.zeros(64, device=cuda_device))
-    with pytest.raises(RuntimeError, match='has no gradient'):
-        out.sum().backward()
+    for kern in (gs.groupnorm_silu, gs.block_norm_silu):
+        x = torch.randn(2, 8, 8, 64, device=cuda_device, requires_grad=True)
+        out = kern(x, torch.ones(64, device=cuda_device),
+                   torch.zeros(64, device=cuda_device))
+        with pytest.raises(RuntimeError, match='has no gradient'):
+            out.sum().backward()
+
+
+@pytest.mark.cuda
+def test_block_norm_silu_matches_plain_at_the_flagship_shapes(cuda_device):
+    """The default Block's entry at the seven shapes of a flagship forward
+    (b = 8, the largest also at 16), with and without FiLM, bf16 and f32:
+    within the kernels' bounds of its plain version, and a second call
+    repeats the bits."""
+    res = chip_smoke.phase_kernels(
+        torch, cuda_device, lin_shapes=(), attn_shapes=(), linear_shapes=(),
+        flash_shapes=(), ragged_lin_shapes=(), ragged_flash_shapes=(),
+        ragged_attn_shapes=(), ragged_linear_shapes=(), iters=1)
+    cases = [c for c in res['cases'] if c['kernel'] == 'block_norm_silu']
+    assert len(cases) == 2 * 2 * (len(chip_smoke.GN_SHAPES) + 1)
+    assert all(c['ok'] and c['bitwise_repeat'] for c in cases), [
+        c for c in cases if not c['ok']]
+
+
+def _flagship_forward_inputs(b=2, size=64):
+    g = torch.Generator(device='cuda').manual_seed(3)
+    x = torch.randn(b, 3, size, size, generator=g, device='cuda')
+    t = torch.rand(b, generator=g, device='cuda')
+    return x, t, dict(cond=torch.rand(b, 3, size, size, generator=g,
+                                      device='cuda') * 2 - 1,
+                      class_label=torch.arange(b, device='cuda') % 3)
+
+
+@pytest.mark.cuda
+def test_block_norm_silu_launches_once_a_block_when_sampling(cuda_device):
+    """The flagship net (38 Blocks): one forward with autograd recording
+    nothing launches ``block_norm_silu`` 38 times and nothing of
+    ``groupnorm_silu``; a training forward with autograd recording launches
+    it none, and its backward runs; the two forwards agree."""
+    net = chip_smoke.build_flagship(torch, cuda_device).net
+    x, t, fwd = _flagship_forward_inputs()
+    with torch.inference_mode():
+        out, launched = chip_smoke._launched(
+            torch, cuda_device, lambda: net(x, t, **fwd))
+    per_forward = chip_smoke._per_forward(list(net.modules()))
+    assert launched == per_forward and launched['block_norm_silu'] == 38
+    assert launched['groupnorm_silu'] == 0
+    trained, launched = chip_smoke._launched(
+        torch, cuda_device, lambda: net(x, t, **fwd))
+    assert launched == chip_smoke._per_forward(list(net.modules()),
+                                               grad=True)
+    assert launched['block_norm_silu'] == 0
+    trained.float().square().mean().backward()
+    grad = net.init_conv.weight.grad
+    assert grad is not None and torch.isfinite(grad).all()
+    err = (out.float() - trained.detach().float()).abs().max().item()
+    assert err <= chip_smoke.BF16_RTOL * trained.detach().float().abs().max()
+
+
+@pytest.mark.cuda
+def test_deep_cache_forward_routes_every_block_it_runs(cuda_device):
+    """A DeepCache forward at depth 2 runs the Blocks of the two shallow
+    stages and the final block, each through ``block_norm_silu``."""
+    net = chip_smoke.build_flagship(torch, cuda_device).net
+    x, t, fwd = _flagship_forward_inputs()
+    with torch.inference_mode():
+        (full, cache), _ = chip_smoke._launched(
+            torch, cuda_device,
+            lambda: net(x, t, **fwd, cache_depth=2, return_cache=True))
+        cached, launched = chip_smoke._launched(
+            torch, cuda_device,
+            lambda: net(x, t, **fwd, cache_depth=2, deep_cache=cache))
+    want = chip_smoke._cached_per_forward(net, 2)
+    assert launched == want and 0 < want['block_norm_silu'] < 38
+    err = (cached.float() - full.float()).abs().max().item()
+    assert err <= chip_smoke.BF16_RTOL * full.float().abs().max().item()
 
 
 # ---------------------------------------------------------------------------

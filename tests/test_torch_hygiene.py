@@ -216,8 +216,9 @@ def test_rehearsed_second_slice_routes_to_the_second_kernel_set(rehearsal):
     # 2 stages: 11 ResnetBlocks of two Blocks; no whole-block kernel
     assert s['per_forward'] == {
         'linattn_block': 0, 'attn_block': 0, 'groupnorm_silu': 22,
-        'attention': 3, 'linear_attention': 0, 'linear_attention_qkv': 2,
-        'int8_conv': 0, 'act_amax': 0, 'quantize_act': 0}
+        'block_norm_silu': 0, 'attention': 3, 'linear_attention': 0,
+        'linear_attention_qkv': 2, 'int8_conv': 0, 'act_amax': 0,
+        'quantize_act': 0}
     assert set(s['launches'].values()) == {0}
     assert set(s['dpmpp_launches'].values()) == {0}
     assert 0 < s['forward_rel_diff_vs_default_net'] <= 0.05
@@ -236,12 +237,14 @@ def test_rehearsed_deep_cache_phase_splits_the_net(rehearsal):
     default, pallas = dc['nets']['default'], dc['nets']['use_pallas']
     assert default['per_cached_forward'] == {
         'linattn_block': 2, 'attn_block': 0, 'groupnorm_silu': 0,
-        'attention': 0, 'linear_attention': 0, 'linear_attention_qkv': 0,
-        'int8_conv': 0, 'act_amax': 0, 'quantize_act': 0}
+        'block_norm_silu': 10, 'attention': 0, 'linear_attention': 0,
+        'linear_attention_qkv': 0, 'int8_conv': 0, 'act_amax': 0,
+        'quantize_act': 0}
     assert pallas['per_cached_forward'] == {
         'linattn_block': 0, 'attn_block': 0, 'groupnorm_silu': 10,
-        'attention': 0, 'linear_attention': 0, 'linear_attention_qkv': 2,
-        'int8_conv': 0, 'act_amax': 0, 'quantize_act': 0}
+        'block_norm_silu': 0, 'attention': 0, 'linear_attention': 0,
+        'linear_attention_qkv': 2, 'int8_conv': 0, 'act_amax': 0,
+        'quantize_act': 0}
     for net in (default, pallas):
         assert net['fresh_cache_bitwise'] and net['fresh_cache_max_abs_diff'] == 0
         assert net['cache_shape'] == [4, 16, 32, 32]
@@ -449,15 +452,16 @@ def test_rehearsed_summary_lists_six_kernels_with_every_key(rehearsal):
     line."""
     ks = rehearsal['summary']['kernels']
     assert [k['name'] for k in ks] == [
-        'linattn_block', 'attn_block', 'groupnorm_silu', 'attention',
-        'linear_attention', 'linear_attention_qkv', 'int8_conv', 'act_amax',
-        'quantize_act']
+        'linattn_block', 'attn_block', 'groupnorm_silu', 'block_norm_silu',
+        'attention', 'linear_attention', 'linear_attention_qkv', 'int8_conv',
+        'act_amax', 'quantize_act']
     keys = {'name', 'route', 'source', 'replaces', 'launches',
             'drive_launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms'}
     # the JAX line each replaces: a Pallas kernel's def, or QuantConv's
     # XLA conv, amax and quantize
-    xla = {'int8_conv': 'lax.conv_general_dilated(',
+    xla = {'block_norm_silu': 'x = group_norm(x, scale, bias',
+           'int8_conv': 'lax.conv_general_dilated(',
            'act_amax': 'jnp.max(jnp.abs(xf))',
            'quantize_act': 'jnp.clip(jnp.round(xf / x_div)'}
     for k in ks:
@@ -491,13 +495,15 @@ def test_rehearsed_kernel_cases_cover_film_and_the_cfg_batch(rehearsal):
         for b in (2, 4):
             assert {c[3] for c in cases if c[0] == name and c[1] == b} == {
                 'bfloat16', 'float32'}, (name, b)
-    gn = [c for c in cases if c[0] == 'groupnorm_silu']
-    assert {(c[1], c[2]) for c in gn} == {(2, True), (2, False), (4, True),
-                                          (4, False)}
-    # groupnorm_silu is called twice on the same inputs and must repeat its
-    # bits; the other kernels are not asked
-    assert all(c[5] is True for c in gn)
-    assert all(c[5] is None for c in cases if c[0] != 'groupnorm_silu')
+    for kernel in chip_smoke.GN_KERNELS:
+        gn = [c for c in cases if c[0] == kernel]
+        assert {(c[1], c[2]) for c in gn} == {(2, True), (2, False),
+                                              (4, True), (4, False)}
+        # groupnorm_silu.cu's entries are called twice on the same inputs
+        # and must repeat their bits; the other kernels are not asked
+        assert all(c[5] is True for c in gn)
+    assert all(c[5] is None for c in cases
+               if c[0] not in chip_smoke.GN_KERNELS)
 
 
 def test_rehearsed_int8_phase_runs_the_quantized_path(rehearsal):
@@ -511,8 +517,9 @@ def test_rehearsed_int8_phase_runs_the_quantized_path(rehearsal):
     assert q['ok'] and all(q['checks'].values()), q['checks']
     assert q['per_forward'] == {
         'linattn_block': 2, 'attn_block': 3, 'groupnorm_silu': 0,
-        'attention': 0, 'linear_attention': 0, 'linear_attention_qkv': 0,
-        'int8_conv': 11, 'act_amax': 11, 'quantize_act': 11}
+        'block_norm_silu': 22, 'attention': 0, 'linear_attention': 0,
+        'linear_attention_qkv': 0, 'int8_conv': 11, 'act_amax': 11,
+        'quantize_act': 11}
     # calibrated: no QuantConv takes its amax any more
     assert q['per_forward_calibrated'] == {**q['per_forward'], 'act_amax': 0}
     cases = [c for c in q['kernel_cases'] if c['kernel'] == 'int8_conv']
@@ -761,11 +768,12 @@ def test_rehearsed_profile_sums_each_kernel_and_times_single_calls(rehearsal):
                    - net['kernel_ms_per_forward']) < 1e-6
     assert set(prof['standalone_device_ms']) == {
         'linattn_block_70_32', 'attn_block_70_64', 'linear_attention_qkv_70',
-        'attention_70', 'sdpa_70', 'groupnorm_silu_70_32'}
+        'attention_70', 'sdpa_70', 'groupnorm_silu_70_32',
+        'block_norm_silu_70_32'}
     assert all(v > 0 for v in prof['standalone_device_ms'].values())
     split = prof['standalone_by_device_kernel']
     assert set(split) == {'attn_block_70_64', 'linear_attention_qkv_70',
-                          'groupnorm_silu_70_32'}
+                          'groupnorm_silu_70_32', 'block_norm_silu_70_32'}
     # counted on the card; the CPU's plain versions are several ops
     assert set(prof['standalone_device_kernels_per_call']) == set(split)
     for net in prof['nets'].values():
@@ -814,15 +822,23 @@ def test_kernel_ab_variants_and_shapes():
 
 def test_profile_counts_device_kernels_per_forward():
     """One ``groupnorm_silu_fused`` a Block: 38 device kernels of
-    ``groupnorm_silu`` in a flagship forward; the shared merge goes to the
-    kernel the net routes to; PyTorch's own kernels are not counted."""
+    ``groupnorm_silu`` in a flagship forward, or of ``block_norm_silu``
+    where the kernel's BLOCK instance runs (the default net); the shared
+    merge goes to the kernel the net routes to; PyTorch's own kernels are
+    not counted."""
     import chip_smoke
-    rows = [(1.5, 38, 'void (anonymous namespace)::groupnorm_silu_fused<__nv_bfloat16, 8>(int)'),
+    rows = [(1.5, 38, 'void (anonymous namespace)::groupnorm_silu_fused<__nv_bfloat16, 8, false>(int)'),
             (0.3, 6, 'void (anonymous namespace)::kv_partials_mma<8>(int)'),
             (0.1, 6, 'void srgd::merge_kv_partials<__nv_bfloat16>(float const*)'),
             (9.0, 40, 'void at::native::vectorized_elementwise_kernel<4>(int)')]
     assert chip_smoke._launches_by_kernel(rows, 'linear_attention_qkv') == {
         'groupnorm_silu': 38, 'linear_attention_qkv': 12}
+    rows[0] = (1.6, 38, 'void (anonymous namespace)::groupnorm_silu_fused<__nv_bfloat16, 8, true>(int)')
+    assert chip_smoke._launches_by_kernel(rows, 'linear_attention_qkv') == {
+        'block_norm_silu': 38, 'linear_attention_qkv': 12}
+    assert chip_smoke._by_kernel(rows[:1], 'linattn_block') == {
+        'block_norm_silu': {'ms': 1.6, 'device_kernels': {
+            'groupnorm_silu_fused': 1.6}}}
     assert chip_smoke.DEVICE_KERNELS['groupnorm_silu_fused'] == 'groupnorm_silu'
     assert not {'gn_stats', 'gn_fold', 'gn_apply'} & set(chip_smoke.DEVICE_KERNELS)
 

@@ -5,6 +5,8 @@ The weights of a small JAX U-Net cross into the port through
 in both (NHWC in JAX, the same memory as NCHW channels_last in the port) and
 must agree to atol 1e-4."""
 
+import contextlib
+import copy
 import functools
 
 import numpy as np
@@ -55,7 +57,7 @@ def _nchw(a):
 
 
 def _nhwc(t):
-    return t.permute(0, 2, 3, 1).detach().numpy()
+    return t.permute(0, 2, 3, 1).detach().float().numpy()
 
 
 def _t_emb(seed=1):
@@ -96,14 +98,38 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize('name', sorted(CASES))
+# the Block cases again with autograd recording nothing, where the default
+# Block runs block_norm_silu (on the CPU its plain version), in float32 and
+# with both packages computing in bfloat16
+ROUTED = ('block', 'block_film', 'resnet_block')
+MODES = ('inference', 'inference_bf16')
+BF16_ULP = 2 ** -7   # max|port - flax| <= one bfloat16 ulp at max|flax|
+
+
+def _in_bf16(mod):
+    """A copy of a port Block or ResnetBlock computing in bfloat16."""
+    mod = copy.deepcopy(mod)
+    for m in mod.modules():
+        if isinstance(m, tl.Block):
+            m.dtype = torch.bfloat16
+        if isinstance(m, tl.Conv2d):
+            m.compute_dtype = torch.bfloat16
+    return mod
+
+
+@pytest.mark.parametrize('name', sorted(CASES) + [
+    f'{case}.{mode}' for case in ROUTED for mode in MODES])
 def test_layer_matches_flax(nets, name):
+    name, _, mode = name.partition('.')
     make_flax, path, get_port, kind = CASES[name]
     params, net = nets[not kind.endswith('_nearest')]
     p = params
     for k in path:
         p = p[k]
     jmod, tmod = make_flax(), get_port(net)
+    if mode == 'inference_bf16':
+        jmod, tmod = jmod.clone(dtype=jnp.bfloat16), _in_bf16(tmod)
+    run = torch.inference_mode() if mode else contextlib.nullcontext()
 
     if kind == 'time':
         t = np.random.default_rng(2).normal(size=(3,)).astype(np.float32)
@@ -127,13 +153,79 @@ def test_layer_matches_flax(nets, name):
                      for _ in range(2))
             want = jmod.apply({'params': p}, jnp.asarray(x),
                               scale_shift=(jnp.asarray(s), jnp.asarray(sh)))
-            got = _nhwc(tmod(_nchw(x), scale_shift=(_nchw(s), _nchw(sh))))
+            with run:
+                got = _nhwc(tmod(_nchw(x), scale_shift=(_nchw(s), _nchw(sh))))
         else:
             want = jmod.apply({'params': p}, *args)
-            got = _nhwc(tmod(*targs))
-    want = np.asarray(want)
+            with run:
+                got = _nhwc(tmod(*targs))
+    want = np.asarray(want).astype(np.float32)
     assert got.shape == want.shape
-    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    atol = (BF16_ULP * np.abs(want).max() if mode == 'inference_bf16'
+            else ATOL)
+    np.testing.assert_allclose(got, want, atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_block_routes_by_grad_mode(monkeypatch, nets, dtype):
+    """With autograd recording nothing a default Block calls
+    ``block_norm_silu`` once, FiLM passed as a view of the time MLP's output
+    (no stack); with autograd recording it runs the PyTorch chain. The two
+    agree within 1e-5 in float32, and within bfloat16's rounding."""
+    from srgd_tpu_torch.kernels import groupnorm_silu as gs
+
+    calls = []
+
+    def spy(x, gamma, beta, film=None, **kw):
+        calls.append(film)
+        return gs.block_norm_silu(x, gamma, beta, film, **kw)
+
+    monkeypatch.setattr(tl, 'block_norm_silu', spy)
+    _, net = nets[True]
+    mod = net.downs[0][1]
+    if dtype == torch.bfloat16:
+        mod = _in_bf16(mod)
+    x, te = _nchw(_img(DIM)).to(dtype), torch.from_numpy(_t_emb())
+    want = mod(x, te)
+    assert calls == [] and want.requires_grad
+    with torch.inference_mode():
+        got = mod(x, te)
+    assert len(calls) == 2 and calls[1] is None
+    film = calls[0]
+    assert film.shape == (2, 2, DIM) and film.is_contiguous()
+    with torch.inference_mode():
+        t = mod.mlp(te)
+    assert torch.equal(film, t.view(2, 2, DIM))
+    assert got.dtype == dtype and got.is_contiguous(
+        memory_format=torch.channels_last)
+    err = (got.float() - want.detach().float()).abs().max().item()
+    tol = 1e-5 if dtype == torch.float32 else (
+        BF16_ULP * want.detach().float().abs().max().item())
+    assert err <= tol
+    with torch.no_grad():
+        mod(x, te)
+    assert len(calls) == 4
+
+
+def test_block_film_view_and_stack():
+    """``_film`` views the two halves of one row, and stacks anything
+    else."""
+    t = torch.randn(3, 2 * DIM)
+    scale, shift = t[:, :, None, None].chunk(2, dim=1)
+    film = tl._film(scale, shift)
+    assert film.data_ptr() == t.data_ptr() and film.is_contiguous()
+    assert torch.equal(film, t.view(3, 2, DIM))
+    apart = tl._film(shift, scale)
+    assert apart.data_ptr() != t.data_ptr() and torch.equal(
+        apart, torch.stack([shift.flatten(1), scale.flatten(1)], dim=1))
+
+
+def test_block_norm_silu_is_forward_only():
+    from srgd_tpu_torch.kernels import groupnorm_silu as gs
+    x = torch.randn(2, 4, 4, DIM, requires_grad=True)
+    out = gs.block_norm_silu(x, torch.ones(DIM), torch.zeros(DIM))
+    with pytest.raises(RuntimeError, match='has no gradient'):
+        out.sum().backward()
 
 
 @pytest.fixture
