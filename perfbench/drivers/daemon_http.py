@@ -12,6 +12,14 @@ schedule; every request due in it is timed from when it was due to the
 last byte of its PNG, a failed one counting as infinitely late. The
 generator waits up to ``grace_s`` past the window for late answers.
 
+A traced run keeps the window as it is and adds the program's spans of
+its requests (``serve.queue_wait``, ``serve.coalesce_wait``) to the
+record; every run puts the window's p90 there too. Once every answer is in, a segment of the same traffic follows,
+``profile_after_s`` + ``profile_s`` long, with the profiler open over its
+``profile_s``: closing the session and reducing its events stall the
+daemon for tens of seconds, and that stall now falls on the segment's
+requests, which are not timed.
+
 Check: the coalesced samples are recorded as they happen (each batch's
 noise seed, labels and rows, by a fingerprint of each row's condition); the
 batches holding the requests drawn from the seed are sampled again by the
@@ -23,6 +31,7 @@ every PNG of those batches is compared with the reference's.
 from __future__ import annotations
 
 import base64
+import contextlib
 import gc
 import hashlib
 import io
@@ -89,7 +98,9 @@ def setup(cell: dict, opts: dict):
     """(server, httpd, batches, capture, cfg): ``batches`` lists every
     coalesced sample (its noise seed, its rows' fingerprints); the sample
     numbered ``capture['batch']`` has each step's input and output tiles
-    copied on the device into ``capture['steps']``."""
+    copied on the device into ``capture['steps']``; once
+    ``capture['cpu']`` is set, the thread that samples moves itself onto
+    that CPU at its next sample (``pinned_apart``)."""
     import torch
     tr = cell['traffic_data']
     cfg = program.apply_overrides(cell['config_data'], opts.get('overrides'))
@@ -111,10 +122,14 @@ def setup(cell: dict, opts: dict):
     if opts.get('fault'):
         from perfbench.tests import faults
         faults.apply(opts['fault'], server.sampler)
-    batches, capture = [], {'batch': None, 'on': False, 'steps': []}
+    batches = []
+    capture = {'batch': None, 'on': False, 'steps': [], 'cpu': None}
     plain = server.batcher.sample_batch
 
     def recorded(conds, labels):
+        if capture['cpu'] is not None and \
+                os.sched_getaffinity(0) != {capture['cpu']}:
+            os.sched_setaffinity(0, {capture['cpu']})
         capture['on'] = len(batches) == capture['batch']
         try:
             out = plain(conds, labels)
@@ -130,10 +145,10 @@ def setup(cell: dict, opts: dict):
     def recorded_step(*a, **k):
         out = plain_step(*a, **k)
         if capture['on']:
-            # (the step's input tiles, its output, log-SNR now and next)
+            # (the step's input tiles, its output, log-SNR now and next,
+            # as given: read by the check, after the window)
             capture['steps'].append((a[0].detach().clone(),
-                                     out[0].detach().clone(),
-                                     float(a[4]), float(a[5])))
+                                     out[0].detach().clone(), a[4], a[5]))
         return out
     wrapper.p_sample_tiles = recorded_step
     warm(server, tr, lambda w: harness.note(opts, w))
@@ -163,13 +178,17 @@ def warm(server, tr: dict, note=None) -> None:
         torch.cuda.synchronize()
 
 
+def load_params(tr: dict, seed: int, rate: float, seconds: float) -> dict:
+    """The load generator's parameters (``loadgen.py``) for the traffic."""
+    return {'seed': seed, 'rate': rate, 'seconds': seconds,
+            'arrival_seed': tr['arrival_seed'], 'sizes': tr['sizes'],
+            'labels': tr['labels'], 'grace_s': tr['grace_s']}
+
+
 def start_load(tr: dict, seed: int, rate: float, seconds: float):
     """The load generator's process, making its images; ``go(proc, port)``
     starts its schedule."""
-    p = {'seed': seed, 'rate': rate, 'seconds': seconds,
-         'arrival_seed': tr['arrival_seed'], 'sizes': tr['sizes'],
-         'labels': tr['labels'],
-         'grace_s': tr['grace_s']}
+    p = load_params(tr, seed, rate, seconds)
     return subprocess.Popen(
         [sys.executable, str(harness.ROOT / 'loadgen.py'), json.dumps(p)],
         stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
@@ -195,6 +214,120 @@ def finish_load(proc, timeout: float) -> dict:
     if proc.returncode != 0:
         raise RuntimeError(f'load generator exited {proc.returncode}')
     return json.loads(out.strip().splitlines()[-1])
+
+
+def move_threads(pids, cpus: set) -> None:
+    """Every thread of the processes ``pids`` onto ``cpus``."""
+    for pid in pids:
+        try:
+            tids = os.listdir(f'/proc/{pid}/task')
+        except OSError:                         # a process that has ended
+            continue
+        for tid in tids:
+            try:
+                os.sched_setaffinity(int(tid), cpus)
+            except OSError:                     # a thread that has ended
+                pass
+
+
+@contextlib.contextmanager
+def pinned_apart(capture: dict, proc):
+    """The daemon's sampling thread on a CPU of its own, every other
+    thread of this process and of the load generator (``proc``) on the
+    rest (a thread started later takes its starter's CPUs); all back on
+    every CPU at the end. The 25-step sample is bound by the host's
+    launches, and the HTTP handlers' PNG work, the load generator's
+    threads or a migration would otherwise share its core. Left as it is
+    with fewer than 3 CPUs."""
+    cpus = sorted(os.sched_getaffinity(0))
+    if len(cpus) < 3:
+        yield
+        return
+    move_threads((os.getpid(), proc.pid), set(cpus[:-1]))
+    capture['cpu'] = cpus[-1]
+    try:
+        yield
+    finally:
+        capture['cpu'] = None
+        move_threads((os.getpid(),), set(cpus))
+
+
+def kill(proc) -> None:
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+WAITS = ('serve.queue_wait', 'serve.coalesce_wait')
+
+
+def span_ids() -> set:
+    from srgd_tpu_torch.utils.profiling import SPANS
+    return {e.id for e in SPANS.ring(WAITS[0])}
+
+
+def record_waits(record, before: set, answered: int,
+                 timeout: float = 10.0) -> None:
+    """Each wait span (``WAITS``) of the requests answered since ``before``
+    (the ids the rings held then) into ``record``, in ms. A request's spans
+    are written just after its answer, so this waits, up to ``timeout``,
+    until ``answered`` requests have them."""
+    from srgd_tpu_torch.utils.profiling import SPANS
+    end = time.perf_counter() + timeout
+    while len(span_ids() - before) < answered and \
+            time.perf_counter() < end:
+        time.sleep(0.05)
+    new = span_ids() - before
+    for name in WAITS:
+        for e in SPANS.ring(name):
+            if e.id in new:
+                record.span(name, e.seconds * 1e3)
+
+
+def profile_segment(server, httpd, tr: dict, seed: int, rate: float,
+                    record) -> None:
+    """The traced part, after the window: the same traffic for
+    ``profile_after_s`` + ``profile_s``, the profiler open over its last
+    ``profile_s``, each forward marked on the device's timeline. Its
+    requests are served and not timed."""
+    import torch
+    wrapper = server.sampler.wrapper
+    wrapper.net_apply = tracing.ForwardMarks(
+        torch, server.sampler.device).wrap(wrapper.net_apply)
+    seconds = tr['profile_after_s'] + tr['profile_s']
+    proc = start_load(tr, seed, rate, seconds)
+
+    def work():
+        opened = dict(server.batcher.stats)
+        time.sleep(tr['profile_s'])
+        for prefix, a, b in (('lead_', lead, opened),
+                             ('traced_', opened, server.batcher.stats)):
+            record.counters.update({prefix + k: v for k, v in
+                                    batch_stats(a, b).items()})
+    try:
+        go(proc, httpd.server_address[1])
+        lead = dict(server.batcher.stats)
+        time.sleep(tr['profile_after_s'])
+        tracing.profiled(torch, work, record)
+        finish_load(proc, seconds + tr['grace_s'] + 60)
+    finally:
+        kill(proc)
+
+
+def batch_stats(a: dict, b: dict) -> dict:
+    """The batcher's counts from its stats ``a`` to ``b``: samples, the
+    canvases they held, and how many closed full or on the coalescing
+    deadline."""
+    return {k: b[k] - a[k] for k in (
+        'batches', 'batched_images', 'batches_closed_full',
+        'batches_closed_deadline')}
+
+
+def fill(c: dict, prefix: str = '') -> str:
+    n = c[prefix + 'batches']
+    return (f'{c[prefix + "batched_images"] / max(n, 1):.2f} canvases a '
+            f'sample, {c[prefix + "batches_closed_full"]} of {n} closed '
+            f'full, {c[prefix + "batches_closed_deadline"]} on the deadline')
 
 
 def stop(server, httpd) -> None:
@@ -252,10 +385,7 @@ def check(cfg, tr, seed, batches, capture, results, device,
     torch.backends.cudnn.allow_tf32 = False
     names = ('step_gap', 'start_gap', 'png_gap')
     bad = ({k: INF for k in names}, {'step_gap': INF} if control else None)
-    sched = schedule({'seed': seed, 'rate': tr['rate'],
-                      'seconds': tr['window_s'],
-                      'arrival_seed': tr['arrival_seed'],
-                      'sizes': tr['sizes'], 'labels': tr['labels']})
+    sched = schedule(load_params(tr, seed, tr['rate'], tr['window_s']))
     requests = {fingerprint(cond_of(seed, i, size, tr)): i
                 for i, (_, size, _) in enumerate(sched)}
     j = capture['batch']
@@ -282,6 +412,7 @@ def check(cfg, tr, seed, batches, capture, results, device,
                capture['steps'][0][0] - noise.init(canvas))))}
     low_gap = 0.0
     for i, (x, nxt, ls, lsn) in enumerate(capture['steps']):
+        ls, lsn = float(ls), float(lsn)
         if (x.shape[0] != len(idx) or ls != float(table[i])
                 or lsn != float(table[i + 1])):
             return bad
@@ -330,62 +461,67 @@ def run(cell: dict, opts: dict) -> dict:
     try:
         server, httpd, batches, capture, cfg = setup(cell, opts)
     except BaseException:
-        proc.kill()
-        proc.wait()
+        kill(proc)
         raise
     capture['batch'] = 1 + harness.seed_of(seed, 'check') % 4
     cuda = torch.cuda.is_available() and opts['device'] != 'cpu'
     record = harness.Record()
+    window = {'open': True}
     if trace:
-        wrapper = server.sampler.wrapper
-        wrapper.net_apply = tracing.ForwardMarks(
-            torch, server.sampler.device).wrap(wrapper.net_apply)
         sample = server.sampler.sample
 
         def timed_sample(conds, *a, **k):
             t0 = time.perf_counter()
             out = sample(conds, *a, **k)
-            record.span('sample', (time.perf_counter() - t0) * 1e3,
-                        conds.shape[0])
+            if window['open']:
+                record.span('sample', (time.perf_counter() - t0) * 1e3,
+                            conds.shape[0])
             return out
         server.sampler.sample = timed_sample
     stats0 = dict(server.batcher.stats)
+    before = span_ids()
     try:
-        go(proc, httpd.server_address[1])
-        harness.note(opts, 'load generator ready')
-        setup_s = time.perf_counter() - opts['t_start']
-        if trace:
-            time.sleep(tr['profile_after_s'])
-            tracing.profiled(torch, lambda: time.sleep(tr['profile_s']),
-                             record)
-        load = finish_load(proc, seconds + tr['grace_s'] + 60)
+        with pinned_apart(capture, proc):
+            try:
+                go(proc, httpd.server_address[1])
+                harness.note(opts, 'load generator ready')
+                setup_s = time.perf_counter() - opts['t_start']
+                load = finish_load(proc, seconds + tr['grace_s'] + 60)
+            finally:
+                kill(proc)
+            window['open'] = False
+            window_stats = batch_stats(stats0, server.batcher.stats)
+            record_waits(record, before,
+                         sum(r['status'] == 200 for r in load['results']))
+            if trace:
+                profile_segment(server, httpd, tr, seed, rate, record)
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    stats1 = dict(server.batcher.stats)
-    stop(server, httpd)
+        stop(server, httpd)
     device = harness.device_info(torch, 1) if cuda else None
     release(server)
 
     results = load['results']
     lat = [r['latency_ms'] for r in results]
     failed = sum(r['status'] != 200 for r in results)
-    ok = [r for r in results if r['status'] == 200]
     record.counters.update(
-        batches=stats1['batches'] - stats0['batches'],
-        batched_images=stats1['batched_images'] - stats0['batched_images'],
-        chips=cell['chips'], steps_per_sample=tr['num_sample_steps'],
-        late_ms_max=max((r['late_ms'] for r in results), default=0.0))
+        window_stats, chips=cell['chips'],
+        steps_per_sample=tr['num_sample_steps'],
+        late_ms_max=max((r['late_ms'] for r in results), default=0.0),
+        request_p90_ms=harness.percentile(lat, 90))
     print(f'load generator: {len(results)} requests, {failed} failed, '
-          f'latest send {record.counters["late_ms_max"]:.1f} ms after due',
-          file=sys.stderr)
+          f'latest send {record.counters["late_ms_max"]:.1f} ms after due; '
+          f'window p50 {harness.percentile(lat, 50):.2f} ms, '
+          f'p90 {harness.percentile(lat, 90):.2f} ms', file=sys.stderr)
+    print(f'window: {fill(record.counters)}', file=sys.stderr)
+    if 'traced_batches' in record.counters:
+        print(f'segment before the profiler: '
+              f'{fill(record.counters, "lead_")}; profiled part: '
+              f'{fill(record.counters, "traced_")}', file=sys.stderr)
     tr_check = dict(tr, rate=rate, window_s=seconds)
     checks, control = check(cfg, tr_check, seed, batches, capture, results,
                             opts['device'], opts.get('control', False))
     return {'attempted': len(results), 'failed': failed, 'setup_s': setup_s,
-            'e2e': {'request_p50_ms': harness.percentile(lat, 50),
-                    'request_p90_ms': harness.percentile(lat, 90)},
+            'e2e': {'request_p50_ms': harness.percentile(lat, 50)},
             'checks': checks, 'control': control, 'record': record,
             'device': device, 'served_batches': len(batches)}
 
@@ -410,14 +546,16 @@ def sweep(cell: dict, opts: dict, rates: list, seconds: float) -> list:
     p50 and p90, and how the latency grew from the first third of the
     requests to the last (a growing backlog)."""
     tr = cell['traffic_data']
-    server, httpd, _, _, _ = setup(cell, opts)
+    server, httpd, _, capture, _ = setup(cell, opts)
     out = []
     try:
         for k, rate in enumerate(rates):
             proc = start_load(tr, harness.seed_of(opts['seed'], 'sweep', k),
                               rate, seconds)
-            go(proc, httpd.server_address[1])
-            res = finish_load(proc, seconds + tr['grace_s'] + 60)['results']
+            with pinned_apart(capture, proc):
+                go(proc, httpd.server_address[1])
+                res = finish_load(proc, seconds + tr['grace_s'] + 60)[
+                    'results']
             lat = [r['latency_ms'] for r in res]
             third = max(len(lat) // 3, 1)
             done = [r for r in res if r['status'] == 200]

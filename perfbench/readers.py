@@ -4,6 +4,8 @@ nothing for it (the metric is then left out of the result line)."""
 
 from __future__ import annotations
 
+import statistics
+
 from perfbench import kernels
 from perfbench.counts import formulas
 
@@ -49,3 +51,8 @@ def group_ms_per_forward(record, exclude: tuple):
 
 def span_ms(record, name: str):
     return [ms for ms, _ in record.spans.get(name, [])]
+
+
+def span_median_ms(record, name: str):
+    v = span_ms(record, name)
+    return statistics.median(v) if v else None

@@ -84,6 +84,28 @@ def test_every_cell_resolves_to_its_files(spec):
             assert 'workloads' not in moved or w['name'] in moved['workloads']
 
 
+def test_the_serve_cell_reads_the_daemons_waits(spec):
+    per_layer = {m['name']: m for m in spec['per_layer']}
+    for name in ('queue_wait_ms.serve', 'coalesce_wait_ms.serve'):
+        m = per_layer[name]
+        assert (m['source'], m['moves'], m['workloads'], m['layer']) == (
+            'program_span', 'request_p50_ms', ['serve-lr64-w8a8'],
+            'serving daemon')
+        assert harness.metric_reader(name).read(harness.Record()) is None
+
+
+def test_the_serve_cells_p90_is_read_per_layer(spec):
+    own = harness.cell_metrics('serve-lr64-w8a8', False, spec)
+    assert {m['name'] for m in own} == {'request_p50_ms', 'setup_s'}
+    m = {m['name']: m for m in spec['per_layer']}['request_p90_ms.serve']
+    assert (m['source'], m['moves'], m['workloads']) == (
+        'host_clock', 'request_p50_ms', ['serve-lr64-w8a8'])
+    r = harness.Record()
+    assert harness.metric_reader(m['name']).read(r) is None
+    r.counters['request_p90_ms'] = 1700.0
+    assert harness.metric_reader(m['name']).read(r) == 1700.0
+
+
 def test_configuration_files_state_what_they_run(spec):
     for c in spec['configs']:
         data = json.loads((ROOT / c['file']).read_text())

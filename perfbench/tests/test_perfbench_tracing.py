@@ -3,6 +3,7 @@ per-layer readers."""
 
 from __future__ import annotations
 
+import os
 import sys
 from pathlib import Path
 from types import SimpleNamespace
@@ -96,6 +97,14 @@ def test_readers_on_a_filled_record():
     rec.span('data_wait', 3.0)
     rec.span('data_wait', 5.0)
     assert reader('data_wait_ms.train')(rec) == 4.0
+    for ms in (250.0, 10.0, 400.0):
+        rec.span('serve.queue_wait', ms)
+    for ms in (500.0, 0.5, 300.0, 100.0):
+        rec.span('serve.coalesce_wait', ms)
+    rec.counters['request_p90_ms'] = 1800.0
+    assert reader('request_p90_ms.serve')(rec) == 1800.0
+    assert reader('queue_wait_ms.serve')(rec) == 250.0
+    assert reader('coalesce_wait_ms.serve')(rec) == 200.0
     assert reader('step_mfu.serve')(rec) == pytest.approx(
         8 * 25 * formulas.unet_counts()['model_flops_per_tile']
         / (2.0 * 989e12) * 100)
@@ -126,3 +135,70 @@ def test_forwards_are_told_apart_by_their_marks():
              + formulas.forward_bound_s('int8_conv', 6)) * 1e3
     assert reader('int8_conv_roofline.serve')(rec) == \
         pytest.approx(bound / 0.007 * 100)
+
+
+def test_traced_serve_run_profiles_only_after_its_window(monkeypatch):
+    """The profiler opens, closes and reduces its events only once the
+    window's load generator has finished, on a segment of the same traffic
+    that follows; the record holds the window's own spans (the daemon's
+    waits, one a request; the samples' span, the window's alone) and the
+    batches' fill of the window, the segment's lead-in and the profiled
+    part; under load the sampling thread has a CPU of its own."""
+    import time
+
+    from perfbench.run import judge
+    from perfbench.tests.test_perfbench_faults import SEED, tiny_cell
+    cell, overrides, seconds = tiny_cell('serve-lr64-w8a8')
+    cell['traffic_data'].update(profile_after_s=0.5, profile_s=0.5)
+    drv = harness.driver('daemon_http')
+    events, pinned = [], []
+    plain_finish = drv.finish_load
+    cpus = sorted(os.sched_getaffinity(0))
+
+    def thread_cpus():
+        return sorted(sorted(os.sched_getaffinity(int(t)))
+                      for t in os.listdir('/proc/self/task'))
+
+    def finish(proc, timeout):
+        out = plain_finish(proc, timeout)
+        events.append(('load finished', len(out['results'])))
+        pinned.append(thread_cpus())
+        return out
+
+    def profiled(torch, work, record):
+        events.append(('profiler opened', None))
+        work()
+        events.append(('profiler closed', None))
+        # what tracing.profiled writes besides
+        record.busy_s, record.window_s = 0.1, 0.5
+        record.counters.update(profiled_batches=[1], profiled_forwards=1)
+
+    monkeypatch.setattr(drv, 'finish_load', finish)
+    monkeypatch.setattr(tracing, 'profiled', profiled)
+    out = drv.run(cell, dict(seed=SEED, seconds=seconds, trace=True,
+                             device='cpu', t_start=time.perf_counter(),
+                             overrides=overrides))
+    assert [e for e, _ in events] == ['load finished', 'profiler opened',
+                                      'profiler closed', 'load finished']
+    assert events[0][1] == out['attempted'] and out['failed'] == 0
+    assert judge(out['checks'], cell['limits'])[0], out['checks']
+    rec = out['record']
+    for name in ('serve.queue_wait', 'serve.coalesce_wait'):
+        assert len(rec.spans[name]) == out['attempted']
+    assert reader('queue_wait_ms.serve')(rec) is not None
+    assert reader('coalesce_wait_ms.serve')(rec) is not None
+    assert reader('request_p90_ms.serve')(rec) >= out['e2e']['request_p50_ms']
+    assert sum(n for _, n in rec.spans['sample']) == \
+        rec.counters['batched_images'] == out['attempted']
+    # under load the sampling thread had a CPU of its own, every other
+    # thread the rest; afterwards every thread is back on every CPU
+    if len(cpus) >= 3:
+        for got in pinned:
+            assert [cpus[-1:]] == [c for c in got if c != cpus[:-1]]
+    assert all(c == cpus for c in thread_cpus())
+    # the batches' fill before and in the profiled part, to set beside the
+    # window's
+    for k in ('batches', 'batched_images', 'batches_closed_full',
+              'batches_closed_deadline'):
+        assert k in rec.counters and rec.counters[f'traced_{k}'] >= 0 \
+            and rec.counters[f'lead_{k}'] >= 0

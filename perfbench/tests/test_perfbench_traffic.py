@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import io
 import sys
 from collections import Counter
 from pathlib import Path
@@ -12,7 +13,8 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
 from perfbench import harness  # noqa: E402
-from perfbench.loadgen import schedule  # noqa: E402
+from perfbench.loadgen import request_image, schedule  # noqa: E402
+from perfbench.reference import inputs as ref_inputs  # noqa: E402
 
 SEED = 2 ** 31 + 77
 
@@ -33,7 +35,31 @@ def test_schedule_repeats_and_every_seed_gets_the_same_work():
     assert Counter(lab for _, _, lab in a) == \
         Counter(lab for _, _, lab in c)
     assert [(s, lab) for _, s, lab in a] != [(s, lab) for _, s, lab in c]
-    assert len(a) == 120 and a[0][0] == 0.0 and 38 < a[-1][0] < 42
+    n = round(40 * harness.traffic('serve-lr64')['rate'])
+    assert len(a) == n and a[0][0] == 0.0 and 38 < a[-1][0] < 42
+
+
+def test_the_check_makes_again_the_images_the_generator_sends():
+    """daemon_http.cond_of, the reference's condition of request i, is the
+    bucket pad and bicubic of the very PNG the load generator sends for
+    the run's seed, and another seed sends other images."""
+    from PIL import Image
+    drv = harness.driver('daemon_http')
+    tr = harness.traffic('serve-lr64')
+    conds = []
+    for seed in (SEED, SEED + 7):
+        p = drv.load_params(tr, seed, tr['rate'], 2)
+        for i, (_, size, _) in enumerate(schedule(p)):
+            png = request_image(seed, i, size)
+            lr = np.asarray(Image.open(io.BytesIO(png)).convert('RGB'))
+            want = ref_inputs.upscale(ref_inputs.bucket_pad(
+                lr, tr['lr_bucket']))
+            got = drv.cond_of(seed, i, size, tr)
+            assert np.array_equal(got, want), (seed, i)
+            conds.append(got)
+    half = len(conds) // 2
+    assert not any(np.array_equal(x, y) for x, y in zip(conds[:half],
+                                                         conds[half:]))
 
 
 def test_photos_and_noise_repeat():
